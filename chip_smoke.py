@@ -1,16 +1,19 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SDXL LoRA+TI train step on one CUDA card.
 
-    python3 chip_smoke.py [--batch 4] [--remat on|off]
+    python3 chip_smoke.py [--remat on|off]
 
-With no arguments it runs the product default (bs=4, remat on). Phases, each fatal on failure (the script exits non-zero and prints no result):
+With no arguments it runs the product default (the batch of 4 of
+train_configs/training_args_style_sdxl.json, remat on). Phases, each fatal on
+failure (the script exits non-zero and prints no result):
 1. device: refuses to run without CUDA; prints the card's name and power
    limit and builds the flash kernels (K1-K3) from csrc/ with nvcc;
 2. kernels: each kernel against its plain PyTorch version in bf16 at the
    shapes the UNet gives it (SDXL 1024px bs=4, ragged buckets, SD1.5 head
-   dims), with its time, the plain version's and PyTorch SDPA's;
-3. reference: a small SDXL-topology train loss and its self-attention LoRA
-   gradients on the card (flash kernels) against the same computation on the
+   dims), with its time, the plain version's and PyTorch SDPA's (forward
+   beside K1, backward beside K2 and K3);
+3. reference: the self-attention LoRA gradients of a small SDXL-topology
+   train loss on the card (flash kernels) against the same computation on the
    CPU (plain attention);
 4. train: the full-width SDXL UNet (random weights from a seed, bf16), both
    text encoders, rank-16 LoRA on the 577 default sites, 3 TI rows per
@@ -29,6 +32,7 @@ import math
 import subprocess
 import sys
 import time
+from typing import Optional
 
 import torch
 
@@ -40,6 +44,12 @@ REPLACES = {
     "flash_fwd": "sd_lora_trainer_tpu/ops/flash_attention.py:139",
     "flash_bwd_dkv": "sd_lora_trainer_tpu/ops/flash_attention.py:174",
     "flash_bwd_dq": "sd_lora_trainer_tpu/ops/flash_attention.py:180",
+}
+# the PyTorch call timed as each kernel's library_ms (timed here, never used by the port)
+LIBRARY_CALLS = {
+    "flash_fwd": "F.scaled_dot_product_attention forward",
+    "flash_bwd_dkv": "F.scaled_dot_product_attention backward (dq, dk, dv in one call: K2 + K3)",
+    "flash_bwd_dq": "F.scaled_dot_product_attention backward (dq, dk, dv in one call: K2 + K3)",
 }
 # (name, batch, heads, real length, head dim); the first two are SDXL 1024px bs=4
 KERNEL_CASES = [
@@ -145,10 +155,12 @@ def phase_kernels():
         def sdpa_fwd():
             return F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=sc)
 
-        def sdpa_fwd_bwd():
-            F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=sc).backward(do)
+        out_s = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask, scale=sc)
 
-        lib_fwd, lib_fwd_bwd = cuda_ms(sdpa_fwd), cuda_ms(sdpa_fwd_bwd)
+        def sdpa_bwd():  # dq, dk and dv in one call: the yardstick of K2 + K3
+            return torch.autograd.grad(out_s, (qs, ks, vs), do, retain_graph=True)
+
+        lib_fwd, lib_bwd = cuda_ms(sdpa_fwd), cuda_ms(sdpa_bwd)
         line = []
         for name in names:
             kern, plain = runs[name]
@@ -167,26 +179,29 @@ def phase_kernels():
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain, iters=3, warmup=1)
             flops, nbytes = _work(name, b, h, lp, valid, d)
             bound, by = _bound_ms(flops, nbytes)
-            lib = lib_fwd if name == "flash_fwd" else None
+            lib = lib_fwd if name == "flash_fwd" else lib_bwd
             s = summary[name]
             s["err"] = max(s["err"], max(errs))
             n_calls = MAIN_PATH_CALLS.get(case, 0)
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
-                             ("library_ms", lib or 0.0), ("flops", flops), ("bytes", nbytes)):
+                             ("library_ms", lib), ("flops", flops), ("bytes", nbytes)):
                 s[key] += n_calls * val
             line.append(f"{name} err={err:.2e} (tol {tol:.2e}) ms={ms:.3f} "
                         f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by})")
         log(f"[kernels] {case} [{b},{h},{lp},{d}] valid={valid or lp}: " + "; ".join(line)
-            + f"; sdpa fwd {lib_fwd:.3f} ms, fwd+bwd {lib_fwd_bwd:.3f} ms"
-            + f" (bwd {lib_fwd_bwd - lib_fwd:.3f} ms)")
-        del q, k, v, do, o_r, lse_r, di, qs, ks, vs
+            + f"; sdpa fwd {lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms")
+        del q, k, v, do, o_r, lse_r, di, qs, ks, vs, out_s
         torch.cuda.empty_cache()
     return summary
 
 
 def phase_reference():
     """Small SDXL-topology loss and grads: CUDA kernels vs CPU plain attention,
-    from the same weights, batch and draws (made on the CPU, then copied)."""
+    from the same weights, batch and draws (made on the CPU, then copied).
+
+    The gradient check is the gate. The loss is only printed: at the init
+    scale the UNet's prediction is near zero, so the loss is about mean(noise^2)
+    and does not see the attention outputs (it agrees to the last bit)."""
     import dataclasses
 
     from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG
@@ -226,7 +241,6 @@ def phase_reference():
         f"(rel {rel:.2e}); self-attention LoRA-B gradients rel L2 error {g_rel:.2e} over "
         f"{grads['cpu'].numel()} values; kernel launches {launched}")
     check(all(n > 0 for n in launched.values()), "the small run did not reach every kernel")
-    check(rel <= 1e-2, f"small-input loss differs from the CPU reference by {rel:.2e}")
     # the kernels round fp32 operands to bf16 (2^-9 relative) for the tensor cores
     check(g_rel <= 2e-2, f"small-input gradients differ from the CPU reference ({g_rel:.2e})")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
@@ -261,9 +275,10 @@ def _moved(run, device):
                      _tree_to(run["batch"], device), run["generator"])
 
 
-def _build_run(ucfg, device, dtype, batch: int, latent_hw: int, rank: int, fuse: bool,
+def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: int, fuse: bool,
                full: bool = False):
-    """Frozen models, trainable tree, optimizer and batch of one SDXL run."""
+    """Frozen models, trainable tree, optimizer and batch of one SDXL run;
+    `batch=None` keeps the train config's batch size."""
     from sd_lora_trainer_tpu_torch.config import TrainingConfig
     from sd_lora_trainer_tpu_torch.diffusion.schedulers import DDPMSchedule
     from sd_lora_trainer_tpu_torch.models import clip
@@ -274,7 +289,7 @@ def _build_run(ucfg, device, dtype, batch: int, latent_hw: int, rank: int, fuse:
     from sd_lora_trainer_tpu_torch.training.embeddings import initialize_new_tokens
 
     config = TrainingConfig.from_json(TRAIN_CONFIG)
-    config.train_batch_size = batch
+    batch = config.train_batch_size = batch or config.train_batch_size
     gen = torch.Generator(device=device).manual_seed(0)
     c1 = clip.CLIP_L_CONFIG if full else clip.TINY_CLIP_L_CONFIG
     c2 = clip.CLIP_BIG_G_CONFIG if full else clip.TINY_CLIP_G_CONFIG
@@ -327,7 +342,7 @@ def _assemble(config, frozen, trainable, batch_d, gen):
     }
 
 
-def phase_train(bs: int, remat: bool):
+def phase_train(remat: bool):
     import dataclasses
 
     from sd_lora_trainer_tpu_torch.models.lora import iter_lora_leaves
@@ -337,8 +352,9 @@ def phase_train(bs: int, remat: bool):
 
     hw = 128  # 1024px
     t0 = time.perf_counter()
-    run = _build_run(SDXL_UNET_CONFIG, "cuda", torch.bfloat16, batch=bs, latent_hw=hw, rank=16,
+    run = _build_run(SDXL_UNET_CONFIG, "cuda", torch.bfloat16, batch=None, latent_hw=hw, rank=16,
                      fuse=True, full=True)
+    bs = run["config"].train_batch_size
     run["sc"] = dataclasses.replace(run["sc"], remat=remat)
     # the config's allow_tf32 (True by default) governs fp32 products on CUDA,
     # as in the upstream PyTorch trainer; the flash kernels do not read it
@@ -442,14 +458,13 @@ def _leaves(tree):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--batch", type=int, default=4, help="train batch size (default 4)")
     parser.add_argument("--remat", choices=("on", "off"), default="on",
                         help="block remat of the train step (default on, the product's 'auto')")
     args = parser.parse_args()
     smi = phase_device()
     summary = phase_kernels()
     phase_reference()
-    launches = phase_train(args.batch, args.remat == "on")
+    launches = phase_train(args.remat == "on")
     entries = []
     for name, s in summary.items():
         bound, by = _bound_ms(s["flops"], s["bytes"])
@@ -460,7 +475,7 @@ def main() -> int:
             "replaces": REPLACES[name], "launches": launches[name],
             "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": bound, "bound_by": by,
-            "library_ms": s["library_ms"] if name == "flash_fwd" else None,
+            "library_ms": s["library_ms"], "library_call": LIBRARY_CALLS[name],
         })
     log(json.dumps({"kernels": entries}))
     log(smi)

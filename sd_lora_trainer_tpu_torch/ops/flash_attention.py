@@ -50,14 +50,16 @@ def kernel_takes_head_dim(head_dim: int) -> bool:
 
 
 def flash_attention_qualifies(q_shape, k_shape, heads: int, device) -> bool:
-    """Gate: tensors on CUDA, self-attention of >= 256 tokens, a head dim the
-    kernels take. Cross-attention and short sequences stay plain."""
+    """Gate: tensors on CUDA, self-attention of >= 256 tokens, head_dim <= 256,
+    as the JAX gate. Cross-attention and short sequences stay plain. A
+    qualifying head dim the kernels are not built for (see
+    `kernel_takes_head_dim`) raises in the kernel wrappers; it never falls
+    back to plain attention."""
     if torch.device(device).type != "cuda":
         return False
     _, lq, d = q_shape
     lk = k_shape[1]
-    head_dim = d // heads
-    return lq == lk and lq >= 256 and kernel_takes_head_dim(head_dim)
+    return lq == lk and lq >= 256 and d // heads <= 256
 
 
 def _pad_plan(l: int):
@@ -157,7 +159,9 @@ def _check_inputs(q, k, v):
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernels take bf16 or fp32, got {q.dtype}")
     if not kernel_takes_head_dim(d) or length % 64:
-        raise ValueError(f"no flash kernel for head_dim={d}, L={length}")
+        raise ValueError(f"no flash kernel for head_dim={d}, L={length}: the kernels take "
+                         f"head dims 40, 64, 80, 160 (a multiple of 8 that rounds up to "
+                         f"{_KERNEL_HEAD_DIMS} at 16) and L a multiple of 64")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, q.shape, q.dtype)
 

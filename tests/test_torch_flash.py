@@ -179,6 +179,20 @@ def test_qualifies_gate():
     assert not fa.flash_attention_qualifies((2, 100, 640), (2, 100, 640), 10, "cuda")
     assert not fa.flash_attention_qualifies((2, 4096, 640), (2, 77, 640), 10, "cuda")
     assert not fa.flash_attention_qualifies((2, 4096, 512), (2, 4096, 512), 1, "cuda")  # d=512
+    # as the JAX gate: every head dim up to 256, also those no kernel is built
+    # for (the wrappers then raise instead of falling back to plain attention)
+    assert fa.flash_attention_qualifies((2, 1024, 64), (2, 1024, 64), 2, "cuda")  # d=32
+    assert fa.flash_attention_qualifies((2, 1024, 256), (2, 1024, 256), 1, "cuda")  # d=256
+
+
+@pytest.mark.parametrize("head_dim", [32, 96, 128, 36])
+def test_kernel_input_check_refuses_head_dims_without_a_kernel(head_dim):
+    """The CUDA wrappers' input check raises for a head dim the kernels are
+    not built for; it runs before any launch, so it is testable on the CPU."""
+    assert not fa.kernel_takes_head_dim(head_dim)
+    q = torch.zeros(1, 2, 256, head_dim)
+    with pytest.raises(ValueError, match="no flash kernel"):
+        fa._check_inputs(q, q, q)
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():

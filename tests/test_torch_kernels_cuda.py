@@ -91,3 +91,16 @@ def test_flash_mha_on_cuda_never_takes_the_plain_version(cuda_device, monkeypatc
     assert all(fa.LAUNCHES[n] == before[n] + 1 for n in fa.LAUNCHES)
     for x, r in zip(got, want):
         _close(x.cpu(), r)
+
+
+@pytest.mark.cuda
+def test_self_attention_on_cuda_raises_for_a_head_dim_without_a_kernel(cuda_device):
+    """A qualifying self-attention (L >= 256, head_dim <= 256) whose head dim
+    has no kernel raises on CUDA; it never returns a plain result."""
+    from sd_lora_trainer_tpu_torch.ops.attention import self_attention
+
+    x = torch.randn(1, 256, 64, device=cuda_device).bfloat16()  # 2 heads of 32
+    fa.reset_launch_counts()
+    with pytest.raises(ValueError, match="no flash kernel"):
+        self_attention(x, x, x, heads=2, use_flash=True)
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
