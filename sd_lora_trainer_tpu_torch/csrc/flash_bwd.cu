@@ -1,0 +1,463 @@
+// flash_bwd: dQ, dK and dV of segment-masked flash attention in one pass.
+//
+// Replaces the two Pallas TPU kernels that sd_lora_trainer_tpu reaches through
+// ops/flash_attention.py::_named_flash: _flash_attention_bwd_dkv (:174) and
+// _flash_attention_bwd_dq (:180) of jax.experimental.pallas.ops.tpu.
+// Contract: flash_common.cuh, with bf16 inputs (the wrapper rounds fp32 ones)
+// and outputs in `dtype`. From q, k, v, dO, lse and di = rowsum(o*dO):
+//   P = exp(sm_scale*q.k - lse) (0 across segments),  dS = P * (dO V^T - di),
+//   dV = P^T dO,  dK = sm_scale * dS^T Q,  dQ = sm_scale * dS K.
+//
+// Bound on the H100: 10*L^2*d flops per (batch, head) (S, dP, dV, dK, dQ)
+// against 7 [L, d] tiles and 2 fp32 rows of bytes: tensor-core operations
+// bound it from L = 256 up.
+//
+// Design (the FA3 backward on sm_90a):
+// - One CTA per (key tile, head, batch), L on blockIdx.x. The key tile is
+//   BN = 64 keys per consumer warpgroup: 2 warpgroups (128 keys) for head
+//   dims up to 80, 1 for 160, whose dK and dV accumulators take 160 registers
+//   a thread. A producer warpgroup (one thread working, registers given to
+//   the consumers with setmaxnreg) loads K and V once by TMA and streams the
+//   Q, dO, lse and di tiles of each 64-row q step through a 2-stage mbarrier
+//   ring, so the loads of step i+1 overlap the products of step i.
+// - The five products run on wgmma (bf16 in, fp32 accumulate), per consumer
+//   warpgroup and its 64 keys: S^T = K Q^T and dP^T = V dO^T with K and V
+//   as A fragments kept in registers for the whole CTA (read from shared
+//   memory for d = 160, where registers run out); dV += P^T dO and
+//   dK += dS^T Q with P^T and dS^T from registers and dO, Q read transposed
+//   through the descriptor; dS^T goes to shared memory as bf16 and
+//   dQ_partial = dS K reads it transposed. Within a step the waits are
+//   staggered: P is computed while dP^T runs, and dS while dV runs.
+// - dQ_partial is added to an fp32 accumulator of [B, H, L, round_up(d, 16)]
+//   floats straight from registers by 16-byte vector atomic adds (resolved in
+//   L2), each 64-row tile in the accumulator's register order
+//   (dq_acc_index); a second small kernel scales it and casts it into dq.
+//   The order of those adds varies from run to run, so dq does too (in its
+//   last bits); dK and dV are written once per CTA and are deterministic.
+// - q tiles where the segment mask removes every (query, key) pair of the CTA
+//   are skipped by producer and consumers alike.
+
+#include <type_traits>
+
+#include "flash_common.cuh"
+#include "hopper_common.cuh"
+
+struct BwdParams {
+  float* dq_acc;  // fp32 [B, H, L, DP], zeroed by the caller; see dq_acc_index
+  void* dk;
+  void* dv;
+  FlashStrides sdk, sdv;
+  const float* lse;
+  const float* di;
+  int heads, len, head_dim, valid_len;
+  float sm_scale;
+};
+
+template <int DP>
+struct BwdConfig {
+  static constexpr int CW = DP % 64 == 0 ? 64 : (DP % 32 == 0 ? 32 : 16);  // chunk width
+  static constexpr int NWG = DP > 96 ? 1 : 2;  // consumer warpgroups of 64 keys
+  static constexpr int BN = 64 * NWG, BM = 64, STAGES = 2;
+  // consumer warpgroups first, then the producer warpgroup
+  static constexpr int THREADS = 128 * (NWG + 1);
+  static constexpr int KV_BYTES = BN * DP * 2;  // one of the K, V tiles
+  static constexpr int QT_BYTES = BM * DP * 2;  // one Q or dO tile
+  static constexpr int DS_BYTES = 64 * BM * 2;  // dS^T of one warpgroup, bf16
+  static constexpr int OFF_K = 0;
+  static constexpr int OFF_V = OFF_K + KV_BYTES;
+  static constexpr int OFF_Q = OFF_V + KV_BYTES;
+  static constexpr int OFF_DO = OFF_Q + STAGES * QT_BYTES;
+  static constexpr int OFF_DS = OFF_DO + STAGES * QT_BYTES;
+  static constexpr int OFF_LSE = OFF_DS + NWG * DS_BYTES;
+  static constexpr int OFF_DI = OFF_LSE + STAGES * BM * 4;
+  static constexpr int OFF_BAR = OFF_DI + STAGES * BM * 4;
+  static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8;
+};
+
+// Calls f(integral_constant<N0>, integral_constant<W>) for the column pieces
+// [N0, N0 + W) that cover [N0, N0 + REM): widths 64, 32 or 16, so each piece
+// is one wgmma instruction and starts on a chunk boundary.
+template <int N0, int REM>
+struct Pieces {
+  static constexpr int W = REM >= 64 ? 64 : (REM >= 32 ? 32 : 16);
+  template <typename F>
+  static __device__ __forceinline__ void run(F&& f) {
+    f(std::integral_constant<int, N0>{}, std::integral_constant<int, W>{});
+    Pieces<N0 + W, REM - W>::run(f);
+  }
+};
+
+template <int N0>
+struct Pieces<N0, 0> {
+  template <typename F>
+  static __device__ __forceinline__ void run(F&&) {}
+};
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const BwdParams p) {
+  using C = BwdConfig<DP>;
+  constexpr int CW = C::CW, NC = DP / CW, BN = C::BN, BM = C::BM, S = C::STAGES;
+  constexpr int NWG = C::NWG;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + S;
+  float* s_lse = reinterpret_cast<float*>(smem + C::OFF_LSE);
+  float* s_di = reinterpret_cast<float*>(smem + C::OFF_DI);
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int L = p.len, vl = p.valid_len, k0 = kt * BN;
+  const long long row_base = ((long long)b * p.heads + h) * L;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // A q tile is live when some (query, key) pair of it and this key tile
+  // shares a segment.
+  const bool k_real = k0 < vl, k_pad = k0 + BN > vl;
+  auto live = [&](int q0) {
+    return vl == 0 || (k_real && q0 < vl) || (k_pad && q0 + BM > vl);
+  };
+  const int nq = L / BM;
+
+  if (threadIdx.x >= 128 * NWG) {  // producer warpgroup: one thread loads
+    if constexpr (NWG > 1) setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * NWG) {
+      mbar_expect_tx(bar_kv, 2 * C::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        tma_load_4d(smem + C::OFF_K + c * BN * CW * 2, &tm_k, bar_kv, c * CW, k0, h, b);
+        tma_load_4d(smem + C::OFF_V + c * BN * CW * 2, &tm_v, bar_kv, c * CW, k0, h, b);
+      }
+      int it = 0;
+      for (int qi = 0; qi < nq; ++qi) {
+        if (!live(qi * BM)) continue;
+        const int s = it % S;
+        mbar_wait<true>(&empty[s], ((it / S) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::QT_BYTES + 2 * BM * 4);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(smem + C::OFF_Q + s * C::QT_BYTES + c * BM * CW * 2, &tm_q, &full[s], c * CW,
+                      qi * BM, h, b);
+          tma_load_4d(smem + C::OFF_DO + s * C::QT_BYTES + c * BM * CW * 2, &tm_do, &full[s],
+                      c * CW, qi * BM, h, b);
+        }
+        bulk_load(s_lse + s * BM, p.lse + row_base + qi * BM, BM * 4, &full[s]);
+        bulk_load(s_di + s * BM, p.di + row_base + qi * BM, BM * 4, &full[s]);
+        ++it;
+      }
+      // the watchdog of the consumers (their waits do not trap): stay until
+      // they have released every stage of the ring
+      for (int j = it; j < it + S; ++j) mbar_wait<true>(&empty[j % S], ((j / S) & 1) ^ 1);
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns keys k0 + 64w .. k0 + 64w + 63
+  if constexpr (NWG > 1) setmaxnreg_inc<240>();
+  const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int kw = 64 * w;
+  const int key_a = k0 + kw + 16 * warp + g, key_b = key_a + 8;
+  const bool kreal[2] = {key_a < vl, key_b < vl};
+  const bool wg_real = k0 + kw + 64 <= vl, wg_pad = k0 + kw >= vl;
+  const float sl2 = p.sm_scale * FLASH_LOG2E;
+  const int d = p.head_dim;
+  const uint32_t s_k = smem_u32(smem + C::OFF_K), s_v = smem_u32(smem + C::OFF_V);
+  unsigned char* ds_tile = smem + C::OFF_DS + w * C::DS_BYTES;
+  const uint32_t s_ds = smem_u32(ds_tile);
+  constexpr uint32_t SBO = 8 * CW * 2;  // 8-row group stride of every chunked tile
+  // dQ_partial columns [N0, N0 + W) into acc: dS (MN-major A) times K_w
+  auto issue_dq = [&](auto n0c, auto wc, float* acc) {
+    constexpr int N0 = decltype(n0c)::value, W = decltype(wc)::value;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const uint64_t da = gmma_desc(s_ds + kk * 16 * 128, 64 * 128, 1024, 64);
+      const uint64_t db = gmma_desc(s_k + (N0 / CW) * BN * CW * 2 + (kw + 16 * kk) * CW * 2,
+                                    BN * CW * 2, SBO, CW);
+      Wgmma<W>::template ss<1, 1>(acc, da, db, kk > 0);
+    }
+  };
+  // acc += into dq_acc in its layout (dq_acc_index): each warp adds 512
+  // contiguous bytes with 16-byte vector atomics
+  auto add_dq = [&](auto n0c, auto wc, const float* acc, int qi) {
+    constexpr int N0 = decltype(n0c)::value, W = decltype(wc)::value;
+    float* dst = p.dq_acc + (row_base + qi * BM) * DP + N0 * 64 + tid * 4;
+#pragma unroll
+    for (int j = 0; j < W / 8; ++j) {
+      atomicAdd(reinterpret_cast<float4*>(dst + j * 512),
+                make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
+    }
+  };
+
+  float dk[DP / 2], dv[DP / 2];
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
+  uint32_t pf[BM / 4], df[BM / 4];  // bf16 P^T and dS^T as wgmma A fragments
+
+  mbar_wait(bar_kv, 0);
+  // K_w and V_w as wgmma A fragments (k-step kk: columns 16kk..16kk+15),
+  // read once from the swizzled tiles; at d = 160 (one warpgroup, its dK and
+  // dV already near the 255-register limit) they stay in shared memory
+  constexpr bool KV_REGS = NWG > 1;
+  constexpr int KVF = KV_REGS ? DP / 4 : 1;
+  uint32_t kf[KVF], vf[KVF];
+  if constexpr (KV_REGS) {
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = kw + 16 * warp + g + 8 * (i & 1), c = 16 * kk + 8 * (i >> 1) + 2 * t;
+        const uint32_t off =
+            (c / CW) * BN * CW * 2 + swizzle_offset(r * CW * 2 + (c % CW) * 2, CW);
+        kf[4 * kk + i] = *reinterpret_cast<const uint32_t*>(smem + C::OFF_K + off);
+        vf[4 * kk + i] = *reinterpret_cast<const uint32_t*>(smem + C::OFF_V + off);
+      }
+    }
+  }
+  int it = 0;
+  for (int qi = 0; qi < nq; ++qi) {
+    if (!live(qi * BM)) continue;
+    const int s = it % S;
+    mbar_wait(&full[s], (it / S) & 1);
+    const uint32_t s_q = smem_u32(smem + C::OFF_Q + s * C::QT_BYTES);
+    const uint32_t s_do = smem_u32(smem + C::OFF_DO + s * C::QT_BYTES);
+    const float* lse = s_lse + s * BM;
+    const float* di = s_di + s * BM;
+
+    // S^T = K_w Q^T and dP^T = V_w dO^T: [64 keys, 64 q], Q and dO K-major
+    float st[BM / 2], dpt[BM / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t col = (kk * 16) / CW, within = (kk * 16) % CW * 2;
+      const uint64_t db = gmma_desc(s_q + col * BM * CW * 2 + within, 16, SBO, CW);
+      if constexpr (KV_REGS) {
+        Wgmma<BM>::template rs<0>(st, kf + 4 * kk, db, kk > 0);
+      } else {
+        const uint64_t da =
+            gmma_desc(s_k + col * BN * CW * 2 + kw * CW * 2 + within, 16, SBO, CW);
+        Wgmma<BM>::template ss<0, 0>(st, da, db, kk > 0);
+      }
+    }
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t col = (kk * 16) / CW, within = (kk * 16) % CW * 2;
+      const uint64_t db = gmma_desc(s_do + col * BM * CW * 2 + within, 16, SBO, CW);
+      if constexpr (KV_REGS) {
+        Wgmma<BM>::template rs<0>(dpt, vf + 4 * kk, db, kk > 0);
+      } else {
+        const uint64_t da =
+            gmma_desc(s_v + col * BN * CW * 2 + kw * CW * 2 + within, 16, SBO, CW);
+        Wgmma<BM>::template ss<0, 0>(dpt, da, db, kk > 0);
+      }
+    }
+    wgmma_commit();
+
+    // P^T and dS^T in the accumulator layout: register 4j+e holds key row
+    // 16*warp + g + 8*(e/2), q column 8j + 2t + e%2. bf16 A fragments: k-step
+    // kc (q columns 16kc..16kc+15) is n-tiles 2kc and 2kc+1.
+    wgmma_wait<1>();  // S^T is done; dP^T may still run
+    fence_regs<BM / 2>(st);
+    const int q0 = qi * BM;
+    if (vl == 0 || (wg_real && q0 + BM <= vl) || (wg_pad && q0 >= vl)) {  // no pair masked
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          st[4 * j + e] = exp2_approx(st[4 * j + e] * sl2 - lse[qc] * FLASH_LOG2E);
+        }
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qc = 8 * j + 2 * t + (e & 1);
+          const bool masked = seg_masked(vl, kreal[e >> 1], q0 + qc);
+          st[4 * j + e] =
+              masked ? 0.f : exp2_approx(st[4 * j + e] * sl2 - lse[qc] * FLASH_LOG2E);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BM / 4; ++i) pf[i] = pack_bf16(st[2 * i], st[2 * i + 1]);
+
+    // dV += P^T dO (A from registers, B MN-major) runs while dS is computed
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BM / 16; ++kc) {
+      Pieces<0, DP>::run([&](auto n0c, auto wc) {
+        constexpr int N0 = decltype(n0c)::value, W = decltype(wc)::value;
+        const uint32_t off = (N0 / CW) * BM * CW * 2 + kc * 16 * CW * 2;
+        Wgmma<W>::template rs<1>(dv + N0 / 2, pf + 4 * kc,
+                                 gmma_desc(s_do + off, BM * CW * 2, SBO, CW), 1);
+      });
+    }
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is done; dV may still run
+    fence_regs<BM / 2>(dpt);
+    // dS from the bf16 P of the fragments, so the fp32 P^T is not kept live
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        const uint32_t pair = pf[2 * j + (e >> 1)];
+        const float pv = __uint_as_float((e & 1) ? (pair & 0xFFFF0000u) : (pair << 16));
+        dpt[4 * j + e] = pv * (dpt[4 * j + e] - di[qc]);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < BM / 4; ++i) df[i] = pack_bf16(dpt[2 * i], dpt[2 * i + 1]);
+
+    // dK += dS^T Q
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BM / 16; ++kc) {
+      Pieces<0, DP>::run([&](auto n0c, auto wc) {
+        constexpr int N0 = decltype(n0c)::value, W = decltype(wc)::value;
+        const uint32_t off = (N0 / CW) * BM * CW * 2 + kc * 16 * CW * 2;
+        Wgmma<W>::template rs<1>(dk + N0 / 2, df + 4 * kc,
+                                 gmma_desc(s_q + off, BM * CW * 2, SBO, CW), 1);
+      });
+    }
+    wgmma_commit();
+
+    // dS^T -> shared memory as [64 keys][64 q] bf16, 128B-swizzled rows: the
+    // MN-major A operand of dQ = dS K
+#pragma unroll
+    for (int kc = 0; kc < BM / 16; ++kc) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int r = 16 * warp + g + 8 * (i & 1);
+        const int c = 16 * kc + 8 * (i >> 1) + 2 * t;
+        *reinterpret_cast<uint32_t*>(ds_tile + swizzle_offset(r * 128 + c * 2, 64)) =
+            df[4 * kc + i];
+      }
+    }
+    fence_proxy_async();
+    named_barrier(1 + w, 128);
+
+    // dQ_partial = dS K_w, one column piece at a time, each added once done
+    Pieces<0, DP>::run([&](auto n0c, auto wc) {
+      float acc[decltype(wc)::value / 2];
+      wgmma_fence();
+      issue_dq(n0c, wc, acc);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<decltype(wc)::value / 2>(acc);
+      add_dq(n0c, wc, acc, qi);
+    });
+    fence_regs<BM / 4>(pf);  // A fragments stay put until their wgmmas are done
+    fence_regs<BM / 4>(df);
+    mbar_arrive(&empty[s]);  // every product reading this stage has completed
+    ++it;
+  }
+  fence_regs<DP / 2>(dk);
+  fence_regs<DP / 2>(dv);
+
+  T* dk_out = static_cast<T*>(p.dk) + b * p.sdk.b + h * p.sdk.h;
+  T* dv_out = static_cast<T*>(p.dv) + b * p.sdv.b + h * p.sdv.h;
+  const float sc = p.sm_scale;
+#pragma unroll
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + 2 * t;
+    if (col < d) {
+      store2(dk_out + key_a * p.sdk.l + col, dk[4 * j] * sc, dk[4 * j + 1] * sc);
+      store2(dk_out + key_b * p.sdk.l + col, dk[4 * j + 2] * sc, dk[4 * j + 3] * sc);
+      store2(dv_out + key_a * p.sdv.l + col, dv[4 * j], dv[4 * j + 1]);
+      store2(dv_out + key_b * p.sdv.l + col, dv[4 * j + 2], dv[4 * j + 3]);
+    }
+  }
+}
+
+// Index of (row r, column c) of a 64-row q tile in its block of 64 * DP
+// floats of dq_acc: the order in which a consumer warpgroup's wgmma
+// accumulator holds the tile, column piece by column piece (Pieces), so that
+// each warp adds it with 16-byte atomics on 512 contiguous bytes.
+template <int DP>
+__device__ __forceinline__ int dq_acc_index(int r, int c) {
+  constexpr int FULL = DP / 64 * 64, REM = DP - FULL;
+  const int n0 = c < FULL ? c / 64 * 64 : (REM >= 32 && c >= FULL + 32 ? FULL + 32 : FULL);
+  const int j = (c - n0) >> 3, t = ((c - n0) & 7) >> 1;
+  const int tid = (r >> 4) * 32 + (r & 7) * 4 + t;
+  const int e = ((r >> 3) & 1) * 2 + (c & 1);
+  return n0 * 64 + j * 512 + tid * 4 + e;
+}
+
+// dq = sm_scale * dq_acc in dq's dtype and strides; one thread per pair.
+template <typename T, int DP>
+__global__ void flash_bwd_dq_convert_kernel(const float* acc, T* dq, FlashStrides s, int heads,
+                                            int len, int d, float scale, long long pairs) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= pairs) return;
+  const long long row = i / (d / 2);  // (b * heads + h) * len + l
+  const int col = (int)(i % (d / 2)) * 2;
+  const int l = (int)(row % len);
+  const int h = (int)((row / len) % heads);
+  const long long b = row / ((long long)len * heads);
+  const float* tile = acc + (row - (l & 63)) * DP;
+  const float2 v = *reinterpret_cast<const float2*>(tile + dq_acc_index<DP>(l & 63, col));
+  store2(dq + b * s.b + h * s.h + (long long)l * s.l + col, v.x * scale, v.y * scale);
+}
+
+template <typename T, int DP>
+static int launch_bwd(const FlashArgs& a, cudaStream_t stream) {
+  using C = BwdConfig<DP>;
+  if (a.len % C::BN != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  const bool ok =
+      make_bhld_map(&tq, a.q, a.batch, a.heads, a.len, a.head_dim, a.sq.b, a.sq.h, a.sq.l, C::CW,
+                    C::BM) &&
+      make_bhld_map(&tk, a.k, a.batch, a.heads, a.len, a.head_dim, a.sk.b, a.sk.h, a.sk.l, C::CW,
+                    C::BN) &&
+      make_bhld_map(&tv, a.v, a.batch, a.heads, a.len, a.head_dim, a.sv.b, a.sv.h, a.sv.l, C::CW,
+                    C::BN) &&
+      make_bhld_map(&tdo, a.dout, a.batch, a.heads, a.len, a.head_dim, a.sdo.b, a.sdo.h, a.sdo.l,
+                    C::CW, C::BM);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  BwdParams p;
+  p.dq_acc = a.acc;
+  p.dk = a.out_a;
+  p.dv = a.out_b;
+  p.sdk = a.sa;
+  p.sdv = a.sb;
+  p.lse = a.lse;
+  p.di = a.di;
+  p.heads = a.heads;
+  p.len = a.len;
+  p.head_dim = a.head_dim;
+  p.valid_len = a.valid_len;
+  p.sm_scale = a.sm_scale;
+  const int smem = C::SMEM + 1024;  // + alignment of the base to 1024 bytes
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, DP>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(a.len / C::BN, a.heads, a.batch);
+  flash_bwd_kernel<T, DP><<<grid, C::THREADS, smem, stream>>>(tq, tk, tv, tdo, p);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const long long pairs = (long long)a.batch * a.heads * a.len * (a.head_dim / 2);
+  flash_bwd_dq_convert_kernel<T, DP><<<(unsigned)((pairs + 255) / 256), 256, 0, stream>>>(
+      a.acc, static_cast<T*>(a.out_c), a.sc, a.heads, a.len, a.head_dim, a.sm_scale, pairs);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int flash_bwd(const FlashArgs* args, void* stream) {
+  FLASH_DISPATCH(launch_bwd, *args, (cudaStream_t)stream);
+}

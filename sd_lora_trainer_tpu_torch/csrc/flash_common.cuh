@@ -1,14 +1,17 @@
-// Shared contract and tile helpers of the three flash-attention kernels
-// (flash_fwd.cu, flash_bwd_dkv.cu, flash_bwd_dq.cu).
+// Shared contract of the flash-attention kernels (flash_fwd.cu, flash_bwd.cu)
+// and the mma.sync tile helpers of the forward.
 //
-// Contract (all three kernels):
+// Contract (both kernels):
 //   q, k, v, dO, o, dq, dk, dv: logical [B, H, L, d] with arbitrary element
-//     strides for b, h and l and a contiguous last dim; bf16 or fp32 (all of
-//     one type). Every stride is a multiple of 8 elements and every base
-//     pointer is 16-byte aligned (the Python wrapper checks this).
-//   lse, di: fp32 [B, H, L], contiguous.
-//   L is a multiple of 64; d is a multiple of 8 with round_up(d, 16) in
-//     {48, 64, 80, 160} (SD head dims 40, 64, 80, 160).
+//     strides for b, h and l and a contiguous last dim. The forward takes
+//     bf16 or fp32 (all of one type); the backward takes bf16 inputs and
+//     writes dq, dk, dv in `dtype`. Every stride is a multiple of 8 elements
+//     and every base pointer is 16-byte aligned (the Python wrapper checks
+//     this).
+//   lse, di: fp32 [B, H, L], contiguous; acc (backward): fp32
+//     [B, H, L, round_up(d, 16)], contiguous and zeroed.
+//   L is a multiple of 64 (128 for the backward); d is a multiple of 8 with
+//     round_up(d, 16) in {48, 64, 80, 160} (SD head dims 40, 64, 80, 160).
 //   Segment mask: with valid_len > 0, token i has segment id (i < valid_len).
 //     A query attends a key only when both have the same id, so pad rows
 //     attend only to pad keys and stay finite.
@@ -32,15 +35,18 @@ struct FlashArgs {
   const void* k;
   const void* v;
   const void* dout;
-  void* out_a;  // fwd: o; dkv: dk; dq: dq
-  void* out_b;  // dkv: dv
-  float* lse;   // written by fwd, read by the backward kernels
+  void* out_a;  // fwd: o; bwd: dk
+  void* out_b;  // bwd: dv
+  float* lse;   // written by fwd, read by the backward
   const float* di;
   FlashStrides sq, sk, sv, sdo, sa, sb;
   int batch, heads, len, head_dim;
   float sm_scale;
   int valid_len;
-  int dtype;  // 0 = bf16, 1 = fp32
+  int dtype;  // fwd: inputs and o; bwd: dq, dk, dv. 0 = bf16, 1 = fp32
+  void* out_c;  // bwd: dq
+  FlashStrides sc;
+  float* acc;  // bwd: the fp32 dq accumulator
 };
 
 #define FLASH_LOG2E 1.4426950408889634f

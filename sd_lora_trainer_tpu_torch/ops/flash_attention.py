@@ -2,20 +2,20 @@
 
 Counterpart of sd_lora_trainer_tpu/ops/flash_attention.py. At 1024px SDXL the
 top self-attention runs at 4096 image tokens; materializing the
-[B, heads, 4096, 4096] logits would waste device memory and bandwidth. The
-three hand-written CUDA kernels (csrc/flash_fwd.cu, flash_bwd_dkv.cu,
-flash_bwd_dq.cu) sit behind one `torch.autograd.Function`:
+[B, heads, 4096, 4096] logits would waste device memory and bandwidth. Two
+hand-written CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) sit behind
+one `torch.autograd.Function`:
 
-- K1 `flash_fwd`: o and the fp32 log-sum-exp `lse` [B, H, L];
-- K2 `flash_bwd_dkv`: dK, dV from q, k, v, dO, lse and di = rowsum(o*dO);
-- K3 `flash_bwd_dq`: dQ from the same inputs.
+- `flash_fwd`: o and the fp32 log-sum-exp `lse` [B, H, L];
+- `flash_bwd`: dQ, dK and dV in one fused pass from q, k, v, dO, lse and
+  di = rowsum(o*dO) (the JAX package's two backward kernels, dK/dV and dQ).
 
 Each wrapper takes the plain PyTorch version (`*_ref`) for a tensor on the
-CPU, and for a CUDA tensor launches its kernel or raises. Head dims 40 and 80
-are zero-filled to 48 and 80 in shared memory inside the kernel, not padded in
-device memory; `sm_scale` always uses the real head dim. Ragged sequence
-lengths are padded to `_pad_plan` and masked with segment ids (ids 1 below
-`valid_len`, 0 above), so pad rows attend only to pad keys.
+CPU, and for a CUDA tensor launches its kernel or raises. Head dim 40 is
+zero-filled to 48 in shared memory inside the kernels, not padded in device
+memory; `sm_scale` always uses the real head dim. Ragged sequence lengths are
+padded to `_pad_plan` and masked with segment ids (ids 1 below `valid_len`, 0
+above), so pad rows attend only to pad keys.
 """
 
 from __future__ import annotations
@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from sd_lora_trainer_tpu_torch.ops.kernels import FlashArgs, FlashStrides, kernel_lib
 
 # Kernel launches per wrapper; only a real CUDA launch counts.
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 
 # round_up(head_dim, 16) values the kernels are instantiated for
 _KERNEL_HEAD_DIMS = (48, 64, 80, 160)
@@ -69,7 +69,8 @@ def _pad_plan(l: int):
     are not 1024-multiples pad up to one; lengths <= 512 pad to a
     128-multiple), so both packages mask the same pad tokens. The block
     entries are the TPU kernel's tiles, kept so the plans compare equal; the
-    CUDA kernels tile at 64 rows, which divides every padded length.
+    CUDA kernels tile at 64 (forward) and 128 (backward) rows, which divide
+    every padded length.
     """
     if l % 1024 == 0 or (l <= 512 and l % 128 == 0):
         lp = l
@@ -127,6 +128,12 @@ def flash_bwd_dq_ref(q, k, v, do, lse, di, sm_scale: float, valid_len: int = 0):
     return (torch.matmul(ds, k.float()) * sm_scale).to(q.dtype)
 
 
+def flash_bwd_ref(q, k, v, do, lse, di, sm_scale: float, valid_len: int = 0):
+    """(dq, dk, dv) from the forward's lse and di = rowsum(o * do)."""
+    dk, dv = flash_bwd_dkv_ref(q, k, v, do, lse, di, sm_scale, valid_len)
+    return flash_bwd_dq_ref(q, k, v, do, lse, di, sm_scale, valid_len), dk, dv
+
+
 # ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
@@ -170,8 +177,8 @@ def _strides(x: torch.Tensor) -> FlashStrides:
     return FlashStrides(*x.stride()[:3])
 
 
-def _launch(name: str, q, k, v, *, dout=None, out_a, out_b=None, lse, di=None,
-            sm_scale: float, valid_len: int) -> None:
+def _launch(name: str, q, k, v, *, dout=None, out_a, out_b=None, out_c=None, acc=None, lse,
+            di=None, sm_scale: float, valid_len: int, dtype: torch.dtype) -> None:
     b, h, length, d = q.shape
     none = FlashStrides(0, 0, 0)
     args = FlashArgs(
@@ -183,7 +190,10 @@ def _launch(name: str, q, k, v, *, dout=None, out_a, out_b=None, lse, di=None,
         sdo=_strides(dout) if dout is not None else none,
         sa=_strides(out_a), sb=_strides(out_b) if out_b is not None else none,
         batch=b, heads=h, len=length, head_dim=d, sm_scale=sm_scale,
-        valid_len=valid_len, dtype=_DTYPE_CODES[q.dtype],
+        valid_len=valid_len, dtype=_DTYPE_CODES[dtype],
+        out_c=out_c.data_ptr() if out_c is not None else None,
+        sc=_strides(out_c) if out_c is not None else none,
+        acc=acc.data_ptr() if acc is not None else None,
     )
     fn = getattr(kernel_lib(name), name)
     rc = fn(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
@@ -206,39 +216,42 @@ def flash_fwd(q, k, v, sm_scale: float, valid_len: int = 0):
     b, h, length, _ = q.shape
     o = _empty_like_heads(q)
     lse = torch.empty(b, h, length, dtype=torch.float32, device=q.device)
-    _launch("flash_fwd", q, k, v, out_a=o, lse=lse, sm_scale=sm_scale, valid_len=valid_len)
+    _launch("flash_fwd", q, k, v, out_a=o, lse=lse, sm_scale=sm_scale, valid_len=valid_len,
+            dtype=q.dtype)
     return o, lse
 
 
 def _check_residuals(q, do, lse, di):
     _check_operand("do", do, q.shape, q.dtype)
     for name, x in (("lse", lse), ("di", di)):
-        if tuple(x.shape) != tuple(q.shape[:3]) or x.dtype != torch.float32 or not x.is_contiguous():
-            raise ValueError(f"{name}: expected contiguous fp32 {tuple(q.shape[:3])}")
+        if (tuple(x.shape) != tuple(q.shape[:3]) or x.dtype != torch.float32
+                or not x.is_contiguous() or x.data_ptr() % 16):
+            raise ValueError(f"{name}: expected contiguous 16-byte aligned fp32 {tuple(q.shape[:3])}")
 
 
-def flash_bwd_dkv(q, k, v, do, lse, di, sm_scale: float, valid_len: int = 0):
-    """K2: (dk, dv) [B, H, L, d]."""
+def flash_bwd(q, k, v, do, lse, di, sm_scale: float, valid_len: int = 0):
+    """(dq, dk, dv) [B, H, L, d] in q's dtype, one fused kernel launch.
+
+    The kernel reads bf16 through TMA, which cannot convert: fp32 q, k, v and
+    do are rounded to bf16 here, the rounding the forward applies when it
+    stages them. dq is summed across key tiles in an fp32 buffer (zeroed
+    here) by atomic adds, so its last bits vary from run to run.
+    """
     if _on_cpu(q, k, v, do, lse, di):
-        return flash_bwd_dkv_ref(q, k, v, do, lse, di, sm_scale, valid_len)
+        return flash_bwd_ref(q, k, v, do, lse, di, sm_scale, valid_len)
     _check_inputs(q, k, v)
     _check_residuals(q, do, lse, di)
-    dk, dv = _empty_like_heads(k), _empty_like_heads(v)
-    _launch("flash_bwd_dkv", q, k, v, dout=do, out_a=dk, out_b=dv, lse=lse, di=di,
-            sm_scale=sm_scale, valid_len=valid_len)
-    return dk, dv
-
-
-def flash_bwd_dq(q, k, v, do, lse, di, sm_scale: float, valid_len: int = 0):
-    """K3: dq [B, H, L, d]."""
-    if _on_cpu(q, k, v, do, lse, di):
-        return flash_bwd_dq_ref(q, k, v, do, lse, di, sm_scale, valid_len)
-    _check_inputs(q, k, v)
-    _check_residuals(q, do, lse, di)
-    dq = _empty_like_heads(q)
-    _launch("flash_bwd_dq", q, k, v, dout=do, out_a=dq, lse=lse, di=di,
-            sm_scale=sm_scale, valid_len=valid_len)
-    return dq
+    b, h, length, d = q.shape
+    if length % 128:
+        raise ValueError(f"no flash_bwd kernel for L={length}: it takes L a multiple of 128")
+    out_dtype = q.dtype
+    dq, dk, dv = _empty_like_heads(q), _empty_like_heads(k), _empty_like_heads(v)
+    if out_dtype != torch.bfloat16:
+        q, k, v, do = (_kernel_layout(x.to(torch.bfloat16)) for x in (q, k, v, do))
+    acc = torch.zeros(b, h, length, _round_up(d, 16), dtype=torch.float32, device=q.device)
+    _launch("flash_bwd", q, k, v, dout=do, out_a=dk, out_b=dv, out_c=dq, acc=acc, lse=lse,
+            di=di, sm_scale=sm_scale, valid_len=valid_len, dtype=out_dtype)
+    return dq, dk, dv
 
 
 def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
@@ -265,8 +278,7 @@ class FlashAttention(torch.autograd.Function):
             do = _kernel_layout(do)
         # di = rowsum(o * dO) stays plain torch, as it is plain jnp in the JAX bwd
         di = (o.float() * do.float()).sum(-1).contiguous()
-        dk, dv = flash_bwd_dkv(qh, kh, vh, do, lse, di, ctx.sm_scale, ctx.valid_len)
-        dq = flash_bwd_dq(qh, kh, vh, do, lse, di, ctx.sm_scale, ctx.valid_len)
+        dq, dk, dv = flash_bwd(qh, kh, vh, do, lse, di, ctx.sm_scale, ctx.valid_len)
         return dq, dk, dv, None, None
 
 

@@ -5,7 +5,8 @@ with a plain C interface, loaded with ctypes. The build happens at first use
 (or through `build_kernels()`), never at import, so the CPU tests import this
 module without a CUDA toolkit. All sources build in parallel, one nvcc each.
 Libraries land in `build/kernels/` at the repository root (git-ignored),
-named by a hash of their sources so an edited kernel is rebuilt.
+named by a hash of their sources and headers, so an edited kernel or
+header is rebuilt.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -61,6 +62,9 @@ class FlashArgs(ctypes.Structure):
         ("sm_scale", ctypes.c_float),
         ("valid_len", ctypes.c_int),
         ("dtype", ctypes.c_int),
+        ("out_c", ctypes.c_void_p),
+        ("sc", FlashStrides),
+        ("acc", ctypes.c_void_p),
     ]
 
 
@@ -75,8 +79,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
+    """The library's path, named by a hash of its source, every header under
+    csrc/ (a shared header's edit rebuilds each kernel) and the flags."""
     h = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "flash_common.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"

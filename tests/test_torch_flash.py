@@ -3,12 +3,15 @@
 The same numpy inputs go through the JAX `flash_mha` (its Pallas TPU kernels
 run in interpret mode on the CPU, as tests/test_flash_padded.py runs them)
 and through the port's `flash_mha`, whose autograd.Function takes the plain
-PyTorch versions of K1-K3 for CPU tensors. Tolerances are the JAX test's own
-(atol 2e-5 on outputs, 5e-5 on gradients, float32): both sides compute the
-same float32 algebra and differ only in summation order. The CUDA kernels
+PyTorch versions of its kernels (flash_fwd, the fused flash_bwd) for CPU
+tensors. Tolerances are the JAX test's own (atol 2e-5 on outputs, 5e-5 on
+gradients, float32): both sides compute the same float32 algebra and differ
+only in summation order. The CUDA kernels
 themselves are held against these plain versions on the card by
 tests/test_torch_kernels_cuda.py.
 """
+
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -128,10 +131,11 @@ def test_flash_mha_matches_jax_kernels(head_dim, mode):
         np.testing.assert_allclose(lse_t.numpy(), lse_j, atol=ATOL_OUT, rtol=0)
 
 
-def test_bwd_refs_match_library_bwd_kernels():
-    """flash_bwd_dkv_ref / flash_bwd_dq_ref against the library's
-    _flash_attention_bwd_dkv / _flash_attention_bwd_dq (segment-masked,
-    L = 300 padded to 384), fed the same l, m, dO and di."""
+@pytest.fixture(scope="module")
+def library_bwd():
+    """The library's _flash_attention_bwd_dkv / _flash_attention_bwd_dq
+    (segment-masked, L = 300 padded to 384) on seeded inputs, with the l, m,
+    dO and di they were fed: (inputs, (dk, dv, dq))."""
     from jax.experimental.pallas.ops.tpu.flash_attention import (
         DEFAULT_MASK_VALUE, BlockSizes, SegmentIds, _flash_attention,
         _flash_attention_bwd_dkv, _flash_attention_bwd_dq,
@@ -163,12 +167,32 @@ def test_bwd_refs_match_library_bwd_kernels():
         )
     lse = torch.tensor(np.asarray(m + jnp.log(l)))
     tq, tk, tv, tdo = (torch.tensor(x) for x in (q, k, v, do))
-    tdi = torch.tensor(np.asarray(di))
-    dk_t, dv_t = fa.flash_bwd_dkv_ref(tq, tk, tv, tdo, lse, tdi, sc, valid)
-    dq_t = fa.flash_bwd_dq_ref(tq, tk, tv, tdo, lse, tdi, sc, valid)
-    for t, j in ((dk_t, dk_j), (dv_t, dv_j), (dq_t, dq_j)):
-        np.testing.assert_allclose(t.numpy(), np.asarray(j), atol=ATOL_GRAD, rtol=0)
-    assert np.isfinite(dq_t.numpy()).all()
+    inputs = (tq, tk, tv, tdo, lse, torch.tensor(np.asarray(di)), sc, valid)
+    return inputs, tuple(np.asarray(x) for x in (dk_j, dv_j, dq_j))
+
+
+def _split_refs(*args):
+    dk, dv = fa.flash_bwd_dkv_ref(*args)
+    return dk, dv, fa.flash_bwd_dq_ref(*args)
+
+
+def _fused_wrapper(*args):
+    fa.reset_launch_counts()
+    dq, dk, dv = fa.flash_bwd(*args)  # CPU tensors: the plain version, no launch
+    assert fa.LAUNCHES["flash_bwd"] == 0
+    return dk, dv, dq
+
+
+@pytest.mark.parametrize("backward", [_split_refs, _fused_wrapper], ids=["refs", "flash_bwd"])
+def test_bwd_refs_match_library_bwd_kernels(library_bwd, backward):
+    """The plain dK/dV and dQ versions, and the CPU path of the fused
+    flash_bwd wrapper, against the library's two backward kernels fed the
+    same l, m, dO and di."""
+    inputs, want = library_bwd
+    got = backward(*inputs)
+    for t, j in zip(got, want):
+        np.testing.assert_allclose(t.numpy(), j, atol=ATOL_GRAD, rtol=0)
+    assert np.isfinite(got[2].numpy()).all()
 
 
 def test_qualifies_gate():
@@ -201,4 +225,33 @@ def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
     o, lse = fa.flash_fwd(q, k, v, 0.125)
     o_r, lse_r = fa.flash_fwd_ref(q, k, v, 0.125)
     assert torch.equal(o, o_r) and torch.equal(lse, lse_r)
-    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0}
+    do = torch.ones_like(q)
+    di = (o * do).sum(-1)
+    got = fa.flash_bwd(q, k, v, do, lse, di, 0.125)
+    want = fa.flash_bwd_ref(q, k, v, do, lse, di, 0.125)
+    assert all(torch.equal(x, r) for x, r in zip(got, want))
+    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
+
+
+def _chip_smoke():
+    import importlib.util
+
+    path = Path(__file__).resolve().parents[1] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke_under_test", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("shape", [(4, 10, 4096, 0, 64), (4, 20, 384, 300, 64),
+                                   (4, 8, 4096, 3952, 40)])
+def test_chip_smoke_counts_the_fused_backward_work(shape):
+    """chip_smoke's bound for flash_bwd: 10 flops per (query, key) pair and
+    head-dim column (S, dP, dV, dK, dQ), over the pairs the segment mask
+    leaves; bytes of 7 bf16 [B, H, L, d] tiles (q, k, v, dO in; dq, dk, dv
+    out) and 2 fp32 [B, H, L] rows (lse, di)."""
+    b, h, lp, valid, d = shape
+    pairs = valid**2 + (lp - valid) ** 2 if valid else lp**2
+    flops, nbytes = _chip_smoke()._work("flash_bwd", b, h, lp, valid, d)
+    assert flops == 10 * b * h * pairs * d
+    assert nbytes == 7 * (b * h * lp * d * 2) + 2 * (b * h * lp * 4)

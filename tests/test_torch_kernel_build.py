@@ -1,0 +1,43 @@
+"""The port's kernel build on the CPU: which sources it compiles and how a
+library is named. Nothing here compiles (there is no nvcc without a card):
+the names come from hashing the sources, headers and flags.
+"""
+
+import shutil
+
+import pytest
+
+from sd_lora_trainer_tpu_torch.ops import kernels
+
+
+def test_each_kernel_source_exists_and_the_split_backward_is_gone():
+    assert kernels.KERNEL_SOURCES == ("flash_fwd", "flash_bwd")
+    for name in kernels.KERNEL_SOURCES:
+        assert (kernels.CSRC / f"{name}.cu").is_file()
+    assert not list(kernels.CSRC.glob("flash_bwd_d*.cu"))
+
+
+@pytest.mark.parametrize("header", ["flash_common.cuh", "hopper_common.cuh"])
+def test_editing_a_shared_header_renames_every_library(tmp_path, monkeypatch, header):
+    """A library is named by a hash of its source and every csrc/*.cuh, so an
+    edited header rebuilds each kernel instead of loading a stale library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
+    assert before == {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
+    with open(csrc / header, "a") as f:
+        f.write("\n// edited\n")
+    after = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
+    assert all(after[name] != before[name] for name in kernels.KERNEL_SOURCES)
+
+
+def test_editing_one_kernel_renames_only_its_library(tmp_path, monkeypatch):
+    csrc = tmp_path / "csrc"
+    shutil.copytree(kernels.CSRC, csrc)
+    monkeypatch.setattr(kernels, "CSRC", csrc)
+    before = {name: kernels._lib_path(name) for name in kernels.KERNEL_SOURCES}
+    with open(csrc / "flash_bwd.cu", "a") as f:
+        f.write("\n// edited\n")
+    assert kernels._lib_path("flash_bwd") != before["flash_bwd"]
+    assert kernels._lib_path("flash_fwd") == before["flash_fwd"]
