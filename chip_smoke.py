@@ -7,13 +7,14 @@ With no arguments it runs the product default (the batch of 4 of
 train_configs/training_args_style_sdxl.json, remat on). Phases, each fatal on
 failure (the script exits non-zero and prints no result):
 1. device: refuses to run without CUDA; prints the card's name and power
-   limit and builds the flash kernels (flash_fwd, the fused flash_bwd) from
-   csrc/ with nvcc;
+   limit, builds the flash kernels (flash_fwd, the fused flash_bwd) from
+   csrc/ with nvcc and prints each kernel's registers and spills;
 2. kernels: each kernel against its plain PyTorch version in bf16 at the
    shapes the UNet gives it (SDXL 1024px bs=4, ragged buckets, SD1.5 head
    dims), with its time, the plain version's and PyTorch SDPA's (forward
-   beside flash_fwd, backward beside flash_bwd), and the run-to-run
-   difference of flash_bwd's dq (its atomic adds);
+   beside flash_fwd, backward beside flash_bwd), equal bits from two
+   flash_fwd launches, and the run-to-run difference of flash_bwd's dq (its
+   atomic adds);
 3. reference: the self-attention LoRA gradients of a small SDXL-topology
    train loss on the card (flash kernels) against the same computation on the
    CPU (plain attention);
@@ -31,7 +32,6 @@ from __future__ import annotations
 import argparse
 import json
 import math
-import re
 import subprocess
 import sys
 import time
@@ -44,7 +44,7 @@ PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 2e-2  # max |kernel - plain| <= KERNEL_TOL * max |plain| (bf16 P and dS)
 TRAIN_CONFIG = "train_configs/training_args_style_sdxl.json"
 REPLACES = {
-    "flash_fwd": "sd_lora_trainer_tpu/ops/flash_attention.py:139",
+    "flash_fwd": "sd_lora_trainer_tpu/ops/flash_attention.py:139,144",
     "flash_bwd": "sd_lora_trainer_tpu/ops/flash_attention.py:174,180",
 }
 # the PyTorch call timed as each kernel's library_ms (timed here, never used by the port)
@@ -102,27 +102,8 @@ def phase_device():
     secs = kernels.build_kernels()
     log(f"[device] built {', '.join(kernels.KERNEL_SOURCES)} for sm_90a in {secs:.1f} s")
     for name, report in kernels.BUILD_LOG.items():
-        log(f"[device] ptxas {name}: " + "; ".join(_ptxas_summary(report)))
+        log(f"[device] ptxas {name}: " + "; ".join(kernels.ptxas_summary(report)))
     return smi
-
-
-def _ptxas_summary(report: str) -> list:
-    """'kernel<dtype, DP>: N registers, S bytes spilled' for each bf16 entry
-    function in an `nvcc -Xptxas -v` report (the fp32 instances match them)."""
-    out, entry, spill = [], None, "0"
-    for line in report.splitlines():
-        m = re.search(r"entry function '_Z\d+(\w+?)I(13__nv_bfloat16|f)Li(\d+)E", line)
-        if m:
-            entry = f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}, {m.group(3)}>"
-        m = re.search(r"(\d+) bytes spill stores", line)
-        if m:
-            spill = m.group(1)
-        m = re.search(r"Used (\d+) registers", line)
-        if m and entry and "bf16" in entry:
-            out.append(f"{entry}: {m.group(1)} registers, {spill} bytes spilled")
-        if m:
-            entry, spill = None, "0"
-    return sorted(out)
 
 
 def _work(name: str, b: int, h: int, lp: int, valid: int, d: int) -> tuple:
@@ -195,6 +176,12 @@ def phase_kernels():
             for e, t in zip(errs, tols):
                 check(e <= t, f"{name} {case}: max_abs_err {e:.3e} > tol {t:.3e}")
             tol, extra = tols[0], ""
+            if name == "flash_fwd":
+                # no atomics: a second launch on the same inputs gives the same bits
+                again = kern()
+                same = all(torch.equal(x, y) for x, y in zip(got, again))
+                check(same, f"flash_fwd {case}: two launches differ")
+                extra = " run_to_run=bitwise"
             if name == "flash_bwd":
                 # dq's fp32 atomic adds land in another order each launch; the
                 # difference may flip a bf16 rounding, and must stay within one

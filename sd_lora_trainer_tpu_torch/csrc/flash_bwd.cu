@@ -37,8 +37,6 @@
 // - q tiles where the segment mask removes every (query, key) pair of the CTA
 //   are skipped by producer and consumers alike.
 
-#include <type_traits>
-
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
 
@@ -72,25 +70,6 @@ struct BwdConfig {
   static constexpr int OFF_DI = OFF_LSE + STAGES * BM * 4;
   static constexpr int OFF_BAR = OFF_DI + STAGES * BM * 4;
   static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8;
-};
-
-// Calls f(integral_constant<N0>, integral_constant<W>) for the column pieces
-// [N0, N0 + W) that cover [N0, N0 + REM): widths 64, 32 or 16, so each piece
-// is one wgmma instruction and starts on a chunk boundary.
-template <int N0, int REM>
-struct Pieces {
-  static constexpr int W = REM >= 64 ? 64 : (REM >= 32 ? 32 : 16);
-  template <typename F>
-  static __device__ __forceinline__ void run(F&& f) {
-    f(std::integral_constant<int, N0>{}, std::integral_constant<int, W>{});
-    Pieces<N0 + W, REM - W>::run(f);
-  }
-};
-
-template <int N0>
-struct Pieces<N0, 0> {
-  template <typename F>
-  static __device__ __forceinline__ void run(F&&) {}
 };
 
 template <typename T, int DP>

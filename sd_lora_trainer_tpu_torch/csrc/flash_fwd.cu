@@ -1,125 +1,343 @@
-// K1 flash_fwd: non-causal segment-masked attention forward with the
+// flash_fwd: non-causal segment-masked attention forward with the
 // log-sum-exp residual.
 //
 // Replaces the Pallas TPU forward kernel that sd_lora_trainer_tpu reaches
-// through ops/flash_attention.py::_named_flash (f/fwd -> the library's
-// _flash_attention -> _flash_attention_impl, pl.pallas_call at library
-// flash_attention.py:758). Contract: flash_common.cuh.
+// through ops/flash_attention.py::_named_flash at
+// sd_lora_trainer_tpu/ops/flash_attention.py:139,144 (f and fwd -> the
+// library's _flash_attention -> _flash_attention_impl, pl.pallas_call at
+// library flash_attention.py:758). Contract: flash_common.cuh, with bf16
+// inputs (the wrapper rounds fp32 ones) and o in `dtype`:
+//   o = softmax(sm_scale*q.k^T + segment mask) v,  lse = log(sum_k exp(s)).
 //
-// Bound on the H100: at the SDXL shapes (L = 4096 and 1024, d = 64) the
-// kernel does 4*L*d flops per q row against 4*d bytes of q and o, so it is
-// bound by tensor-core operations, not bytes (about 1,000 flops per byte).
-// Design: one block of 4 warps per (q tile of 64 rows, head, batch), with L on
-// blockIdx.x. Each warp owns 16 q rows and walks the k tiles (64 keys) staged
-// in shared memory, computing S = Q K^T and O += P V with mma.sync m16n8k16
-// and an fp32 online softmax kept in registers. The S accumulator is reused in
-// registers as the A operand of P V, so P never touches shared memory. Left
-// for later: cp.async/TMA double buffering, wgmma and warp specialisation.
+// Bound on the H100: 4*L^2*d flops per (batch, head) (S = Q K^T and P V)
+// against 4 [L, d] tiles (q, k, v in; o out) and 1 fp32 row (lse) of bytes:
+// tensor-core operations bound it from L = 256 up.
+//
+// Design (the FA3 forward on sm_90a):
+// - One CTA per (q tile of 128 rows, head, batch), L on blockIdx.x: two
+//   consumer warpgroups of 64 q rows each (wgmma's M) and a producer
+//   warpgroup whose registers go to the consumers (setmaxnreg). Its one
+//   working thread loads the Q tile once by TMA and streams the K and V
+//   tiles of BN = 128 keys through a ring of STAGES stages, each with a full
+//   barrier for K, one for V and an empty barrier the consumers release, so
+//   loads run ahead of the products. It alone keeps the wait watchdog.
+// - Tiles are the chunked, swizzled tiles of hopper_common.cuh; TMA's zero
+//   fill reads d = 40 as 48.
+// - S = Q K^T on SS wgmma (Q and K K-major), 64 x 128 fp32 per warpgroup;
+//   the online softmax runs in registers in the log2 domain (sm_scale*log2e
+//   folded in, off-segment pairs at -inf, row max and sum over the 4 threads
+//   of a quad, exp2 on the SFU), and O is rescaled by alpha. A row with no
+//   live key yet keeps base 0, so nothing is -inf - -inf.
+// - O += P V on RS wgmma: P packed to bf16 A fragments in accumulator
+//   order, V read MN-major (transposed through the descriptor), in column
+//   pieces of 64/32/16 that cover d = 48, 64, 80, 160.
+// - Schedule: S of key tile j+1 is issued before the softmax of tile j's
+//   successor waits, with P(j) V(j) behind it, so the softmax of one tile
+//   overlaps the tensor cores' work on the next (FA3's intra-warpgroup
+//   overlap); see FLASH_FWD_SCHED.
+// - Key tiles where the segment mask removes every (query, key) pair of the
+//   CTA are skipped by producer and consumers alike.
+// - Epilogue: O / l in o's dtype and strides; one thread per row writes
+//   lse = (m + log2 l) * ln2. No atomics: two launches give the same bits.
 
 #include "flash_common.cuh"
+#include "hopper_common.cuh"
+
+// 0: per key tile S, softmax, then P V, each waited for;
+// 1: S(j+1) and P(j) V(j) in flight together, the softmax of j+1 overlapping
+//    P(j) V(j);
+// 2: 1, with the two consumer warpgroups taking turns to issue (ping-pong).
+#ifndef FLASH_FWD_SCHED
+#define FLASH_FWD_SCHED 1
+#endif
+// Timing probes that each drop one piece (the results are wrong): 1 the
+// exp2, 2 the whole softmax, 3 P V, 4 S.
+#ifndef FLASH_FWD_PROBE
+#define FLASH_FWD_PROBE 0
+#endif
+
+struct FwdParams {
+  void* o;
+  FlashStrides so;
+  float* lse;
+  int heads, len, head_dim, valid_len;
+  float sm_scale;
+};
+
+#ifndef FLASH_FWD_NWG
+#define FLASH_FWD_NWG 2
+#endif
+#ifndef FLASH_FWD_BN
+#define FLASH_FWD_BN 128
+#endif
+#ifndef FLASH_FWD_CTAS
+#define FLASH_FWD_CTAS 1
+#endif
+
+template <int DP>
+struct FwdConfig {
+  static constexpr int CW = DP % 64 == 0 ? 64 : (DP % 32 == 0 ? 32 : 16);  // chunk width
+  static constexpr bool WIDE = DP > 96;
+  static constexpr int NWG = WIDE ? 2 : FLASH_FWD_NWG;  // consumer warpgroups of 64 q rows
+  static constexpr int BM = 64 * NWG;                   // q rows
+  static constexpr int BN = WIDE ? 128 : FLASH_FWD_BN;  // keys per step
+  static constexpr int CTAS = WIDE ? 1 : FLASH_FWD_CTAS;  // CTAs per SM
+  static constexpr int STAGES = WIDE ? 2 : 3;
+  static constexpr int THREADS = 128 * (NWG + 1);  // consumer warpgroups, then the producer
+  // registers a thread gets at launch, and a consumer thread once the
+  // producer has given back all but 24 of its own (setmaxnreg)
+  static constexpr int LAUNCH_REGS = (65536 / (THREADS * CTAS) / 8 * 8) > 255
+                                         ? 248 : 65536 / (THREADS * CTAS) / 8 * 8;
+  static constexpr int CONSUMER_REGS_ =
+      (LAUNCH_REGS * THREADS - 128 * 24) / (128 * NWG) / 8 * 8;
+  static constexpr int CONSUMER_REGS = CONSUMER_REGS_ > 240 ? 240 : CONSUMER_REGS_;
+  static constexpr int Q_BYTES = BM * DP * 2;
+  static constexpr int KV_BYTES = BN * DP * 2;  // one K or V stage
+  static constexpr int OFF_Q = 0;
+  static constexpr int OFF_K = OFF_Q + Q_BYTES;
+  static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
+  static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
+  static constexpr int SMEM = OFF_BAR + (1 + 3 * STAGES) * 8;
+};
 
 template <typename T, int DP>
-__global__ void __launch_bounds__(FLASH_THREADS) flash_fwd_kernel(FlashArgs args) {
-  constexpr int BM = 64, BN = 64, SROW = DP + 8, NT = DP / 8, KT = DP / 16, ST = BN / 8;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem_raw);
-  bf16* sK = sQ + BM * SROW;
-  bf16* sV = sK + BN * SROW;
+__global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
+    flash_fwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v, const FwdParams p) {
+  using C = FwdConfig<DP>;
+  constexpr int CW = C::CW, NC = DP / CW, BM = C::BM, BN = C::BN, S = C::STAGES;
+  constexpr int NWG = C::NWG, CONSUMERS = 128 * NWG;
+  constexpr int SCHED = FLASH_FWD_SCHED, PROBE = FLASH_FWD_PROBE;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_q = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full_k = bar_q + 1;
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty = full_v + S;
 
   const int qt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  const int L = args.len, d = args.head_dim, vl = args.valid_len;
+  const int L = p.len, vl = p.valid_len, q0 = qt * BM;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
 
-  const T* q = static_cast<const T*>(args.q) + b * args.sq.b + h * args.sq.h +
-               (long long)qt * BM * args.sq.l;
-  const T* k = static_cast<const T*>(args.k) + b * args.sk.b + h * args.sk.h;
-  const T* v = static_cast<const T*>(args.v) + b * args.sv.b + h * args.sv.h;
-  load_tile<T, DP, BM>(sQ, q, args.sq.l, d);
+  // A key tile is live when some (query, key) pair of it and this q tile
+  // shares a segment.
+  const bool q_real = q0 < vl, q_pad = q0 + BM > vl;
+  auto live = [&](int k0) { return vl == 0 || (q_real && k0 < vl) || (q_pad && k0 + BN > vl); };
+  const int nk = L / BN;
 
-  const float sl2 = args.sm_scale * FLASH_LOG2E;
-  const int qa = qt * BM + warp * 16 + g, qb = qa + 8;
-  const bool real[2] = {qa < vl, qb < vl};
-
-  float o[NT][4];
+  if (threadIdx.x >= CONSUMERS) {  // producer warpgroup: one thread loads
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == CONSUMERS) {
+      mbar_expect_tx(bar_q, C::Q_BYTES);
 #pragma unroll
-  for (int n = 0; n < NT; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+      for (int c = 0; c < NC; ++c)
+        tma_load_4d(smem + C::OFF_Q + c * BM * CW * 2, &tm_q, bar_q, c * CW, q0, h, b);
+      int it = 0;
+      for (int kt = 0; kt < nk; ++kt) {
+        if (!live(kt * BN)) continue;
+        const int s = it % S;
+        mbar_wait<true>(&empty[s], ((it / S) & 1) ^ 1);
+        mbar_expect_tx(&full_k[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(smem + C::OFF_K + s * C::KV_BYTES + c * BN * CW * 2, &tm_k, &full_k[s],
+                      c * CW, kt * BN, h, b);
+        mbar_expect_tx(&full_v[s], C::KV_BYTES);
+#pragma unroll
+        for (int c = 0; c < NC; ++c)
+          tma_load_4d(smem + C::OFF_V + s * C::KV_BYTES + c * BN * CW * 2, &tm_v, &full_v[s],
+                      c * CW, kt * BN, h, b);
+        ++it;
+      }
+      // the watchdog of the consumers (their waits do not trap): stay until
+      // they have released every stage of the ring
+      for (int j = it; j < it + S; ++j) mbar_wait<true>(&empty[j % S], ((j / S) & 1) ^ 1);
+    }
+    return;
+  }
+
+  // consumers: warpgroup w owns q rows q0 + 64w .. q0 + 64w + 63
+  setmaxnreg_inc<C::CONSUMER_REGS>();
+  const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int qw = q0 + 64 * w;
+  const int row_a = qw + 16 * warp + g, row_b = row_a + 8;  // this thread's two rows
+  const bool real[2] = {row_a < vl, row_b < vl};
+  const bool wg_real = qw + 64 <= vl, wg_pad = qw >= vl;
+  const float sl2 = p.sm_scale * FLASH_LOG2E;
+  constexpr uint32_t SBO = 8 * CW * 2;  // 8-row group stride of every chunked tile
+  const uint32_t s_q = smem_u32(smem + C::OFF_Q) + 64 * w * CW * 2;
+  const uint32_t s_k = smem_u32(smem + C::OFF_K), s_v = smem_u32(smem + C::OFF_V);
+
+  // accumulator layout (hopper_common.cuh): register 4j+e holds row
+  // 16*warp + g + 8*(e/2) of the warpgroup's 64, column 8j + 2t + e%2
+  float o[DP / 2], sacc[BN / 2];
+  uint32_t pf[BN / 4];  // bf16 P as wgmma A fragments (k-step kc: pf[4kc..4kc+3])
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
 
-  for (int kt = 0; kt < L / BN; ++kt) {
-    __syncthreads();
-    load_tile<T, DP, BN>(sK, k + (long long)kt * BN * args.sk.l, args.sk.l, d);
-    load_tile<T, DP, BN>(sV, v + (long long)kt * BN * args.sv.l, args.sv.l, d);
-    __syncthreads();
-
-    float s[ST][4];
+  // S = Q K^T for the key tile in stage s (Q and K K-major)
+  auto issue_s = [&](int s) {
+    if constexpr (PROBE == 4) return;
+    wgmma_fence();
 #pragma unroll
-    for (int j = 0; j < ST; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < KT; ++kk) {
-      uint32_t a[4];
-      load_a(a, sQ, SROW, warp * 16, kk * 16, lane);
-#pragma unroll
-      for (int j = 0; j < ST; ++j) {
-        uint32_t bb[2];
-        load_b_rows(bb, sK, SROW, j * 8, kk * 16, lane);
-        mma_bf16(s[j], a, bb);
-      }
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t col = (kk * 16) / CW, within = (kk * 16) % CW * 2;
+      const uint64_t da = gmma_desc(s_q + col * BM * CW * 2 + within, 16, SBO, CW);
+      const uint64_t db =
+          gmma_desc(s_k + s * C::KV_BYTES + col * BN * CW * 2 + within, 16, SBO, CW);
+      Wgmma<BN>::template ss<0, 0>(sacc, da, db, kk > 0);
     }
-
-    // scale into the log2 domain, mask, and take the tile's row max
+    wgmma_commit();
+  };
+  // O += P V for the key tile in stage s (P from registers, V MN-major)
+  auto issue_pv = [&](int s) {
+    if constexpr (PROBE == 3) return;
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BN / 16; ++kc) {
+      Pieces<0, DP>::run([&](auto n0c, auto wc) {
+        constexpr int N0 = decltype(n0c)::value, W = decltype(wc)::value;
+        const uint32_t off = s * C::KV_BYTES + (N0 / CW) * BN * CW * 2 + kc * 16 * CW * 2;
+        Wgmma<W>::template rs<1>(o + N0 / 2, pf + 4 * kc,
+                                 gmma_desc(s_v + off, BN * CW * 2, SBO, CW), 1);
+      });
+    }
+    wgmma_commit();
+  };
+  // S of the key tile at k0 -> P (fp32, in place) in the log2 domain; folds
+  // the tile into the running max m and sum l and gives O's rescale alpha
+  auto softmax = [&](int k0, float* alpha) {
+    if constexpr (PROBE == 2) {
+      alpha[0] = alpha[1] = 1.f;
+      return;
+    }
     float mx[2] = {-INFINITY, -INFINITY};
+    if (vl == 0 || (wg_real && k0 + BN <= vl) || (wg_pad && k0 >= vl)) {  // no pair masked
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
+      for (int i = 0; i < BN / 2; ++i) mx[(i >> 1) & 1] = fmaxf(mx[(i >> 1) & 1], sacc[i]);
+    } else {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = kt * BN + j * 8 + t * 2 + (e & 1);
-        float x = s[j][e] * sl2;
-        if (seg_masked(vl, real[e >> 1], key)) x = -INFINITY;
-        s[j][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          if (seg_masked(vl, real[e >> 1], k0 + 8 * j + 2 * t + (e & 1)))
+            sacc[4 * j + e] = -INFINITY;
+          mx[e >> 1] = fmaxf(mx[e >> 1], sacc[4 * j + e]);
+        }
       }
     }
-    float base[2], alpha[2], rs[2] = {0.f, 0.f};
+    float base[2], rs[2] = {0.f, 0.f};
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
       mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-      const float mn = fmaxf(m[r], mx[r]);
-      // a row with no unmasked key yet keeps o = l = 0: subtract 0, never -inf
+      const float mn = fmaxf(m[r], mx[r] * sl2);
+      // a row with no live key yet keeps o = l = 0: subtract 0, never -inf
       base[r] = mn == -INFINITY ? 0.f : mn;
-      alpha[r] = exp2f(m[r] - base[r]);
+      alpha[r] = exp2_approx(m[r] - base[r]);
       m[r] = mn;
     }
 #pragma unroll
-    for (int j = 0; j < ST; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = exp2f(s[j][e] - base[e >> 1]);
-        s[j][e] = p;
-        rs[e >> 1] += p;
-      }
+    for (int i = 0; i < BN / 2; ++i) {
+      const int r = (i >> 1) & 1;
+      const float x = PROBE == 1 ? fmaf(sacc[i], sl2, -base[r])
+                                 : exp2_approx(fmaf(sacc[i], sl2, -base[r]));
+      sacc[i] = x;
+      rs[r] += x;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
+  };
+  auto rescale = [&](const float* alpha) {
 #pragma unroll
-    for (int n = 0; n < NT; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
+    for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+  };
+  auto pack = [&]() {
+#pragma unroll
+    for (int i = 0; i < BN / 4; ++i) pf[i] = pack_bf16(sacc[2 * i], sacc[2 * i + 1]);
+  };
+  auto finish_pv = [&](int s) {  // wait for P V of stage s and release the stage
+    wgmma_wait<0>();
+    fence_regs<DP / 2>(o);
+    fence_regs<BN / 4>(pf);  // A fragments stay put until their wgmmas are done
+    mbar_arrive(&empty[s]);
+  };
 
-    // O += P V
-#pragma unroll
-    for (int kc = 0; kc < BN / 16; ++kc) {
-      uint32_t a[4];
-      acc_to_a(a, s[2 * kc], s[2 * kc + 1]);
-#pragma unroll
-      for (int n = 0; n < NT; ++n) {
-        uint32_t bb[2];
-        load_b_cols(bb, sV, SROW, kc * 16, n * 8, lane);
-        mma_bf16(o[n], a, bb);
+  mbar_wait(bar_q, 0);
+  int it = 0;
+  if constexpr (SCHED == 0) {
+    for (int kt = 0; kt < nk; ++kt) {
+      if (!live(kt * BN)) continue;
+      const int s = it % S;
+      const uint32_t ph = (it / S) & 1;
+      mbar_wait(&full_k[s], ph);
+      issue_s(s);
+      wgmma_wait<0>();
+      fence_regs<BN / 2>(sacc);
+      float alpha[2];
+      softmax(kt * BN, alpha);
+      rescale(alpha);
+      pack();
+      mbar_wait(&full_v[s], ph);
+      issue_pv(s);
+      finish_pv(s);
+      ++it;
+    }
+  } else {
+    // P V of the previous live tile (stage prev, phase prev_ph) is issued
+    // behind S of the current one, O's rescale for it (alpha) in between
+    int prev = -1;
+    uint32_t prev_ph = 0;
+    float alpha[2];
+    if constexpr (SCHED == 2) {
+      if (w == NWG - 1) named_barrier_arrive(1, 256);  // warpgroup 0 issues first
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      if (!live(kt * BN)) continue;
+      const int s = it % S;
+      const uint32_t ph = (it / S) & 1;
+      mbar_wait(&full_k[s], ph);
+      // turn barrier 1 + w: this warpgroup's 128 threads and its predecessor's
+      if constexpr (SCHED == 2) named_barrier(1 + w, 256);  // this warpgroup's turn
+      issue_s(s);
+      if (prev >= 0) {
+        rescale(alpha);
+        mbar_wait(&full_v[prev], prev_ph);
+        issue_pv(prev);
       }
+      if constexpr (SCHED == 2) named_barrier_arrive(1 + (w + 1) % NWG, 256);  // the next's
+      if (prev >= 0) {
+        wgmma_wait<1>();  // S is done; P V may still run
+      } else {
+        wgmma_wait<0>();
+      }
+      fence_regs<BN / 2>(sacc);
+      softmax(kt * BN, alpha);
+      if (prev >= 0) finish_pv(prev);
+      pack();
+      prev = s;
+      prev_ph = ph;
+      ++it;
+    }
+    rescale(alpha);
+    mbar_wait(&full_v[prev], prev_ph);
+    issue_pv(prev);
+    finish_pv(prev);
+    if constexpr (SCHED == 2) {
+      if (w == 0) named_barrier(1, 256);  // matches the last warpgroup's first arrive
     }
   }
 
@@ -128,32 +346,53 @@ __global__ void __launch_bounds__(FLASH_THREADS) flash_fwd_kernel(FlashArgs args
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
   }
-  const float inv0 = 1.f / l[0], inv1 = 1.f / l[1];
-  T* out = static_cast<T*>(args.out_a) + b * args.sa.b + h * args.sa.h;
+  const float inv_a = 1.f / l[0], inv_b = 1.f / l[1];
+  T* out = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
+  const int d = p.head_dim;
+  if (row_a >= L) return;  // rows of a last q tile past L (TMA read them as zeros)
 #pragma unroll
-  for (int n = 0; n < NT; ++n) {
-    const int col = n * 8 + t * 2;
+  for (int j = 0; j < DP / 8; ++j) {
+    const int col = 8 * j + 2 * t;
     if (col < d) {
-      store2(out + qa * args.sa.l + col, o[n][0] * inv0, o[n][1] * inv0);
-      store2(out + qb * args.sa.l + col, o[n][2] * inv1, o[n][3] * inv1);
+      store2(out + row_a * p.so.l + col, o[4 * j] * inv_a, o[4 * j + 1] * inv_a);
+      store2(out + row_b * p.so.l + col, o[4 * j + 2] * inv_b, o[4 * j + 3] * inv_b);
     }
   }
   if (t == 0) {
-    float* lse = args.lse + ((long long)b * args.heads + h) * L;
-    lse[qa] = (m[0] + log2f(l[0])) * FLASH_LN2;
-    lse[qb] = (m[1] + log2f(l[1])) * FLASH_LN2;
+    float* lse = p.lse + ((long long)b * p.heads + h) * L;
+    lse[row_a] = (m[0] + log2f(l[0])) * FLASH_LN2;
+    lse[row_b] = (m[1] + log2f(l[1])) * FLASH_LN2;
   }
 }
 
 template <typename T, int DP>
 static int launch_fwd(const FlashArgs& a, cudaStream_t stream) {
-  constexpr int SROW = DP + 8;
-  const size_t smem = size_t(3 * 64 * SROW) * sizeof(bf16);
+  using C = FwdConfig<DP>;
+  if (a.len % C::BN != 0) return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv;
+  const bool ok =
+      make_bhld_map(&tq, a.q, a.batch, a.heads, a.len, a.head_dim, a.sq.b, a.sq.h, a.sq.l, C::CW,
+                    C::BM) &&
+      make_bhld_map(&tk, a.k, a.batch, a.heads, a.len, a.head_dim, a.sk.b, a.sk.h, a.sk.l, C::CW,
+                    C::BN) &&
+      make_bhld_map(&tv, a.v, a.batch, a.heads, a.len, a.head_dim, a.sv.b, a.sv.h, a.sv.l, C::CW,
+                    C::BN);
+  if (!ok) return (int)cudaErrorInvalidValue;
+  FwdParams p;
+  p.o = a.out_a;
+  p.so = a.sa;
+  p.lse = a.lse;
+  p.heads = a.heads;
+  p.len = a.len;
+  p.head_dim = a.head_dim;
+  p.valid_len = a.valid_len;
+  p.sm_scale = a.sm_scale;
+  const int smem = C::SMEM + 1024;  // + alignment of the base to 1024 bytes
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.len / 64, a.heads, a.batch);
-  flash_fwd_kernel<T, DP><<<grid, FLASH_THREADS, smem, stream>>>(a);
+  dim3 grid((a.len + C::BM - 1) / C::BM, a.heads, a.batch);
+  flash_fwd_kernel<T, DP><<<grid, C::THREADS, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }
 

@@ -26,6 +26,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 // ---------------------------------------------------------------------------
 // Host: tensor maps through the driver entry point (no -lcuda)
 // ---------------------------------------------------------------------------
@@ -156,6 +158,11 @@ __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// Arrive on hardware barrier `id` (of `threads` threads) without waiting.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
 template <int REGS>
 __device__ __forceinline__ void setmaxnreg_inc() {
   asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(REGS));
@@ -226,11 +233,30 @@ __device__ __forceinline__ void fence_regs(uint32_t* r) {
   "+f"(d[o + 0]), "+f"(d[o + 1]), "+f"(d[o + 2]), "+f"(d[o + 3]), "+f"(d[o + 4]),       \
       "+f"(d[o + 5]), "+f"(d[o + 6]), "+f"(d[o + 7])
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, fp32 accumulate; the D layout
-// is mma.sync's m16n8 C layout per warp (warp w holds rows 16w..16w+15).
+// D[64 x N] (+)= A[64 x 16] B[16 x N], bf16 in, fp32 accumulate. D layout:
+// warp w of the warpgroup holds rows 16w..16w+15; register 4j+e of lane
+// (g = lane/4, t = lane%4) holds row 16w + g + 8*(e/2), column 8j + 2t + e%2
+// (the m16n8 accumulator tile of PTX's warp-level mma, one per 8 columns).
 // SS: A and B from shared memory. TA, TB: 1 = MN-major (transposed) operand.
 template <int N>
 struct Wgmma;
+
+template <>
+struct Wgmma<128> {
+  template <int TA, int TB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24), WG_D8(32), WG_D8(40), WG_D8(48), WG_D8(56)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+  }
+};
 
 template <>
 struct Wgmma<64> {
@@ -245,7 +271,10 @@ struct Wgmma<64> {
         : WG_D8(0), WG_D8(8), WG_D8(16), WG_D8(24)
         : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
   }
-  // RS: A from registers (mma.sync's m16n8k16 A fragment per warp).
+  // RS: A from registers, per warp the m16n8k16 A fragment of its 16 rows:
+  // a[0..3] = (row g, cols 2t..2t+1), (row g+8, same), (row g, cols
+  // 2t+8..2t+9), (row g+8, same); two 8-column accumulator tiles 2k, 2k+1 of
+  // the D layout, packed pairwise, are the A fragment of k-step k.
   template <int TB>
   static __device__ __forceinline__ void rs(float* d, const uint32_t* a, uint64_t db,
                                             int accumulate) {
@@ -309,3 +338,22 @@ struct Wgmma<16> {
 };
 
 #undef WG_D8
+
+// Calls f(integral_constant<N0>, integral_constant<W>) for the column pieces
+// [N0, N0 + W) that cover [N0, N0 + REM): widths 64, 32 or 16, so each piece
+// is one wgmma instruction and starts on a chunk boundary.
+template <int N0, int REM>
+struct Pieces {
+  static constexpr int W = REM >= 64 ? 64 : (REM >= 32 ? 32 : 16);
+  template <typename F>
+  static __device__ __forceinline__ void run(F&& f) {
+    f(std::integral_constant<int, N0>{}, std::integral_constant<int, W>{});
+    Pieces<N0 + W, REM - W>::run(f);
+  }
+};
+
+template <int N0>
+struct Pieces<N0, 0> {
+  template <typename F>
+  static __device__ __forceinline__ void run(F&&) {}
+};

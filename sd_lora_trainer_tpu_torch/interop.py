@@ -6,7 +6,8 @@ and returns the port's tree: linear "kernel" (in, out) -> "weight" (out, in),
 conv "kernel" HWIO -> "weight" OIHW, norm "scale" -> "weight", LoRA
 a (in, r) / b (r, out) -> a (r, in) / b (out, r) (convs HWIO -> OIHW), and a
 LoraAlpha-like leaf (anything with `.value`) -> the port's `LoraAlpha`.
-Everything else keeps its name and layout. It never imports jax.
+Everything else keeps its name and layout. The tensors go to the card unless
+`device` says otherwise (the tests pass "cpu"). It never imports jax.
 """
 
 from __future__ import annotations
@@ -34,7 +35,7 @@ def _tensor(x, device, dtype) -> torch.Tensor:
     return torch.from_numpy(a).to(device=device, dtype=dtype)
 
 
-def from_jax_params(tree, device="cpu", dtype=torch.float32, requires_grad: bool = False):
+def from_jax_params(tree, device="cuda", dtype=torch.float32, requires_grad: bool = False):
     """Convert a JAX-package param/LoRA/TI tree; see the module docstring."""
 
     def leaf(x):

@@ -11,11 +11,11 @@ one `torch.autograd.Function`:
   di = rowsum(o*dO) (the JAX package's two backward kernels, dK/dV and dQ).
 
 Each wrapper takes the plain PyTorch version (`*_ref`) for a tensor on the
-CPU, and for a CUDA tensor launches its kernel or raises. Head dim 40 is
-zero-filled to 48 in shared memory inside the kernels, not padded in device
-memory; `sm_scale` always uses the real head dim. Ragged sequence lengths are
-padded to `_pad_plan` and masked with segment ids (ids 1 below `valid_len`, 0
-above), so pad rows attend only to pad keys.
+CPU, and for a CUDA tensor launches its kernel or raises. Both kernels read
+bf16 tiles through TMA; head dim 40 is read as 48 by TMA's zero fill, not
+padded in device memory; `sm_scale` always uses the real head dim. Ragged
+sequence lengths are padded to `_pad_plan` and masked with segment ids (ids 1
+below `valid_len`, 0 above), so pad rows attend only to pad keys.
 """
 
 from __future__ import annotations
@@ -69,8 +69,7 @@ def _pad_plan(l: int):
     are not 1024-multiples pad up to one; lengths <= 512 pad to a
     128-multiple), so both packages mask the same pad tokens. The block
     entries are the TPU kernel's tiles, kept so the plans compare equal; the
-    CUDA kernels tile at 64 (forward) and 128 (backward) rows, which divide
-    every padded length.
+    CUDA kernels tile at 128 rows, which divides every padded length.
     """
     if l % 1024 == 0 or (l <= 512 and l % 128 == 0):
         lp = l
@@ -165,10 +164,11 @@ def _check_inputs(q, k, v):
     b, h, length, d = q.shape
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernels take bf16 or fp32, got {q.dtype}")
-    if not kernel_takes_head_dim(d) or length % 64:
+    if not kernel_takes_head_dim(d) or length % 128:
         raise ValueError(f"no flash kernel for head_dim={d}, L={length}: the kernels take "
                          f"head dims 40, 64, 80, 160 (a multiple of 8 that rounds up to "
-                         f"{_KERNEL_HEAD_DIMS} at 16) and L a multiple of 64")
+                         f"{_KERNEL_HEAD_DIMS} at 16) and L a multiple of 128, the rows "
+                         f"both kernels tile at")
     for name, x in (("q", q), ("k", k), ("v", v)):
         _check_operand(name, x, q.shape, q.dtype)
 
@@ -209,15 +209,22 @@ def _empty_like_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_fwd(q, k, v, sm_scale: float, valid_len: int = 0):
-    """K1: (o [B,H,L,d], lse fp32 [B,H,L]) for q, k, v [B, H, L, d]."""
+    """K1: (o [B,H,L,d] in q's dtype, lse fp32 [B,H,L]) for q, k, v [B, H, L, d].
+
+    The kernel reads bf16 through TMA, which cannot convert: fp32 q, k, v are
+    rounded to bf16 here (the tensor cores' input precision either way).
+    """
     if _on_cpu(q, k, v):
         return flash_fwd_ref(q, k, v, sm_scale, valid_len)
     _check_inputs(q, k, v)
     b, h, length, _ = q.shape
+    out_dtype = q.dtype
     o = _empty_like_heads(q)
     lse = torch.empty(b, h, length, dtype=torch.float32, device=q.device)
+    if out_dtype != torch.bfloat16:
+        q, k, v = (_kernel_layout(x.to(torch.bfloat16)) for x in (q, k, v))
     _launch("flash_fwd", q, k, v, out_a=o, lse=lse, sm_scale=sm_scale, valid_len=valid_len,
-            dtype=q.dtype)
+            dtype=out_dtype)
     return o, lse
 
 
@@ -233,17 +240,15 @@ def flash_bwd(q, k, v, do, lse, di, sm_scale: float, valid_len: int = 0):
     """(dq, dk, dv) [B, H, L, d] in q's dtype, one fused kernel launch.
 
     The kernel reads bf16 through TMA, which cannot convert: fp32 q, k, v and
-    do are rounded to bf16 here, the rounding the forward applies when it
-    stages them. dq is summed across key tiles in an fp32 buffer (zeroed
-    here) by atomic adds, so its last bits vary from run to run.
+    do are rounded to bf16 here, as `flash_fwd` rounds q, k, v. dq is summed
+    across key tiles in an fp32 buffer (zeroed here) by atomic adds, so its
+    last bits vary from run to run.
     """
     if _on_cpu(q, k, v, do, lse, di):
         return flash_bwd_ref(q, k, v, do, lse, di, sm_scale, valid_len)
     _check_inputs(q, k, v)
     _check_residuals(q, do, lse, di)
     b, h, length, d = q.shape
-    if length % 128:
-        raise ValueError(f"no flash_bwd kernel for L={length}: it takes L a multiple of 128")
     out_dtype = q.dtype
     dq, dk, dv = _empty_like_heads(q), _empty_like_heads(k), _empty_like_heads(v)
     if out_dtype != torch.bfloat16:

@@ -6,7 +6,8 @@ with a plain C interface, loaded with ctypes. The build happens at first use
 module without a CUDA toolkit. All sources build in parallel, one nvcc each.
 Libraries land in `build/kernels/` at the repository root (git-ignored),
 named by a hash of their sources and headers, so an edited kernel or
-header is rebuilt.
+header is rebuilt. Beside each library lies its ptxas report
+(`lib<name>-<hash>.ptxas.txt`), read back when the library is cached.
 """
 
 from __future__ import annotations
@@ -14,6 +15,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -29,7 +31,8 @@ NVCC_FLAGS = (
 )
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
-# ptxas resource report (registers, spills, shared memory) of the last build
+# ptxas resource report (registers, spills, shared memory) of each library,
+# from this build or the report kept beside a cached library
 BUILD_LOG: Dict[str, str] = {}
 
 
@@ -88,6 +91,10 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _report_path(lib: Path) -> Path:
+    return lib.with_suffix(".ptxas.txt")
+
+
 def build_kernels() -> float:
     """Compile every kernel library that is missing; returns wall seconds."""
     t0 = time.perf_counter()
@@ -96,12 +103,12 @@ def build_kernels() -> float:
     for name in KERNEL_SOURCES:
         out = _lib_path(name)
         if out.exists():
+            report = _report_path(out)
+            if report.exists():
+                BUILD_LOG[name] = report.read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out)
+        procs[name] = (start_nvcc(CSRC / f"{name}.cu", tmp), tmp, out)
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -109,10 +116,27 @@ def build_kernels() -> float:
         if proc.returncode != 0:
             failed.append(f"{name}:\n{log}")
             continue
+        _report_path(out).write_text(log)
         os.replace(tmp, out)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
+
+
+def start_nvcc(source: Path, out: Path, extra=()) -> subprocess.Popen:
+    """nvcc of one kernel source into a shared library, started in the
+    background (stdout and stderr together hold the ptxas report)."""
+    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(out), str(source)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def load_library(path: Path, name: str) -> ctypes.CDLL:
+    """A built kernel library with its C entry point `name` bound."""
+    lib = ctypes.CDLL(str(path))
+    fn = getattr(lib, name)
+    fn.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return lib
 
 
 def kernel_lib(name: str) -> ctypes.CDLL:
@@ -122,9 +146,24 @@ def kernel_lib(name: str) -> ctypes.CDLL:
         path = _lib_path(name)
         if not path.exists():
             build_kernels()
-        lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _LIBS[name] = lib
+        lib = _LIBS[name] = load_library(path, name)
     return lib
+
+
+def ptxas_summary(report: str) -> list:
+    """'kernel<dtype, DP>: N registers, S bytes spilled' for each bf16 entry
+    function in an `nvcc -Xptxas -v` report (the fp32 instances match them)."""
+    out, entry, spill = [], None, "0"
+    for line in report.splitlines():
+        m = re.search(r"entry function '_Z\d+(\w+?)I(13__nv_bfloat16|f)Li(\d+)E", line)
+        if m:
+            entry = f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}, {m.group(3)}>"
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = m.group(1)
+        m = re.search(r"Used (\d+) registers", line)
+        if m and entry and "bf16" in entry:
+            out.append(f"{entry}: {m.group(1)} registers, {spill} bytes spilled")
+        if m:
+            entry, spill = None, "0"
+    return sorted(out)

@@ -245,13 +245,69 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("shape", [(4, 10, 4096, 0, 64), (4, 20, 384, 300, 64),
                                    (4, 8, 4096, 3952, 40)])
-def test_chip_smoke_counts_the_fused_backward_work(shape):
-    """chip_smoke's bound for flash_bwd: 10 flops per (query, key) pair and
-    head-dim column (S, dP, dV, dK, dQ), over the pairs the segment mask
-    leaves; bytes of 7 bf16 [B, H, L, d] tiles (q, k, v, dO in; dq, dk, dv
-    out) and 2 fp32 [B, H, L] rows (lse, di)."""
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd"])
+def test_chip_smoke_counts_the_kernel_work(kernel, shape):
+    """chip_smoke's bound, over the (query, key) pairs the segment mask leaves:
+    flash_fwd does 4 flops per pair and head-dim column (S, P V) and moves 4
+    bf16 [B, H, L, d] tiles (q, k, v in; o out) and 1 fp32 [B, H, L] row
+    (lse); the fused flash_bwd does 10 (S, dP, dV, dK, dQ) and moves 7 tiles
+    (q, k, v, dO in; dq, dk, dv out) and 2 rows (lse, di)."""
     b, h, lp, valid, d = shape
     pairs = valid**2 + (lp - valid) ** 2 if valid else lp**2
-    flops, nbytes = _chip_smoke()._work("flash_bwd", b, h, lp, valid, d)
-    assert flops == 10 * b * h * pairs * d
-    assert nbytes == 7 * (b * h * lp * d * 2) + 2 * (b * h * lp * 4)
+    flops, nbytes = _chip_smoke()._work(kernel, b, h, lp, valid, d)
+    mult, tiles, rows = {"flash_fwd": (4, 4, 1), "flash_bwd": (10, 7, 2)}[kernel]
+    assert flops == mult * b * h * pairs * d
+    assert nbytes == tiles * (b * h * lp * d * 2) + rows * (b * h * lp * 4)
+
+
+def test_kernel_input_check_refuses_lengths_off_the_128_row_tile():
+    """Both kernels tile L at 128 rows: 320 (a multiple of 64) is refused
+    before any launch, 384 is taken."""
+    q = torch.zeros(1, 2, 320, 64)
+    with pytest.raises(ValueError, match="L a multiple of 128"):
+        fa._check_inputs(q, q, q)
+    q = torch.zeros(1, 2, 384, 64)
+    fa._check_inputs(q, q, q)
+
+
+def test_flash_fwd_on_fp32_cpu_tensors_returns_fp32_from_the_plain_version():
+    fa.reset_launch_counts()
+    q, k, v = (torch.tensor(x).view(1, 384, 2, 40).transpose(1, 2) for x in _qkv(5, 384, 80))
+    o, lse = fa.flash_fwd(q, k, v, 40**-0.5, 300)
+    o_r, lse_r = fa.flash_fwd_ref(q, k, v, 40**-0.5, 300)
+    assert o.dtype == torch.float32 and lse.dtype == torch.float32
+    assert torch.equal(o, o_r) and torch.equal(lse, lse_r)
+    assert fa.LAUNCHES["flash_fwd"] == 0
+
+
+_PTXAS_REPORT = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z16flash_fwd_kernelI13__nv_bfloat16Li48EEv14CUtensorMap_stS1_S1_9FwdParams' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_fwd_kernelI13__nv_bfloat16Li48EEv14CUtensorMap_stS1_S1_9FwdParams
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1536 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z16flash_fwd_kernelIfLi48EEv14CUtensorMap_stS1_S1_9FwdParams' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_fwd_kernelIfLi48EEv14CUtensorMap_stS1_S1_9FwdParams
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 1536 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z16flash_bwd_kernelI13__nv_bfloat16Li160EEv14CUtensorMap_stS1_S1_S1_9BwdParams' for 'sm_90a'
+ptxas info    : Function properties for _Z16flash_bwd_kernelI13__nv_bfloat16Li160EEv14CUtensorMap_stS1_S1_S1_9BwdParams
+    96 bytes stack frame, 100 bytes spill stores, 100 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 1536 bytes cmem[0]
+ptxas info    : Compiling entry function '_Z27flash_bwd_dq_convert_kernelI13__nv_bfloat16Li64EEvPKfPT_12FlashStridesiiifx' for 'sm_90a'
+ptxas info    : Function properties for _Z27flash_bwd_dq_convert_kernelI13__nv_bfloat16Li64EEvPKfPT_12FlashStridesiiifx
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 26 registers, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_summary_reads_registers_and_spills_of_both_kernels():
+    """chip_smoke's [device] line: one entry per bf16 instance (fp32 ones
+    match them), with its registers and spill stores."""
+    from sd_lora_trainer_tpu_torch.ops.kernels import ptxas_summary
+
+    assert ptxas_summary(_PTXAS_REPORT) == [
+        "flash_bwd_dq_convert_kernel<bf16, 64>: 26 registers, 0 bytes spilled",
+        "flash_bwd_kernel<bf16, 160>: 255 registers, 100 bytes spilled",
+        "flash_fwd_kernel<bf16, 48>: 168 registers, 0 bytes spilled",
+    ]

@@ -41,3 +41,34 @@ def test_editing_one_kernel_renames_only_its_library(tmp_path, monkeypatch):
         f.write("\n// edited\n")
     assert kernels._lib_path("flash_bwd") != before["flash_bwd"]
     assert kernels._lib_path("flash_fwd") == before["flash_fwd"]
+
+
+def _fake_nvcc(source, out, extra=()):
+    """Stands in for nvcc: prints a report and writes the library file."""
+    import subprocess
+
+    return subprocess.Popen(["sh", "-c", f"echo 'report of {source.name}'; : > '{out}'"],
+                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+
+def test_a_build_keeps_its_ptxas_report_and_a_cached_library_reads_it_back(tmp_path,
+                                                                            monkeypatch):
+    """The ptxas report (registers, spills) is written beside each library, so
+    a run that finds the libraries already built still prints it."""
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(kernels, "BUILD_LOG", {})
+    monkeypatch.setattr(kernels, "start_nvcc", _fake_nvcc)
+    kernels.build_kernels()
+    for name in kernels.KERNEL_SOURCES:
+        lib = kernels._lib_path(name)
+        assert lib.is_file()
+        assert lib.with_suffix(".ptxas.txt").read_text() == f"report of {name}.cu\n"
+    assert kernels.BUILD_LOG == {n: f"report of {n}.cu\n" for n in kernels.KERNEL_SOURCES}
+
+    def no_nvcc(*args, **kwargs):
+        raise AssertionError("a cached library was rebuilt")
+
+    monkeypatch.setattr(kernels, "start_nvcc", no_nvcc)
+    monkeypatch.setattr(kernels, "BUILD_LOG", {})
+    kernels.build_kernels()
+    assert kernels.BUILD_LOG == {n: f"report of {n}.cu\n" for n in kernels.KERNEL_SOURCES}

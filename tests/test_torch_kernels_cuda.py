@@ -44,12 +44,12 @@ def _close(x, ref):
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "fp32"])
 @pytest.mark.parametrize("shape", [(1, 2, 256, 64, 0), (1, 2, 384, 40, 300),
-                                   (1, 2, 1024, 80, 988), (1, 2, 256, 160, 0),
-                                   (1, 2, 384, 160, 300)])
+                                   (1, 2, 1024, 80, 988), (2, 3, 512, 80, 448),
+                                   (1, 2, 256, 160, 0), (1, 2, 384, 160, 300)])
 def test_cuda_kernels_match_plain_versions(cuda_device, shape, dtype):
     """flash_fwd and the fused flash_bwd against their plain versions. fp32
-    inputs are rounded to bf16 by the kernels (and by flash_bwd's wrapper
-    before TMA), and the outputs keep the caller's dtype."""
+    inputs are rounded to bf16 by the wrappers before TMA, and the outputs
+    keep the caller's dtype."""
     b, h, length, d, valid = shape
     g = torch.Generator(device=cuda_device).manual_seed(0)
     q, k, v, do = (torch.randn(b, length, h, d, generator=g, device=cuda_device)
@@ -67,6 +67,22 @@ def test_cuda_kernels_match_plain_versions(cuda_device, shape, dtype):
         _close(x, r)
     assert (lse - lse_r).abs().max() <= LSE_TOL
     assert all(fa.LAUNCHES[n] == before[n] + 1 for n in fa.LAUNCHES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 3, 1024, 64, 0), (1, 2, 384, 40, 300),
+                                   (1, 2, 1024, 80, 988), (1, 2, 384, 160, 300)])
+def test_flash_fwd_gives_the_same_bits_on_every_launch(cuda_device, shape):
+    """The forward has no atomics: two launches on the same inputs agree
+    bitwise in o and lse."""
+    b, h, length, d, valid = shape
+    g = torch.Generator(device=cuda_device).manual_seed(3)
+    q, k, v = (torch.randn(b, h, length, d, generator=g, device=cuda_device).bfloat16()
+               for _ in range(3))
+    o, lse = fa.flash_fwd(q, k, v, d**-0.5, valid)
+    o2, lse2 = fa.flash_fwd(q, k, v, d**-0.5, valid)
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
 
 
 @pytest.mark.cuda

@@ -72,7 +72,7 @@ def test_dense_with_lora_and_dora(lora):
     rng = _rng(1)
     jp = _dense_params(rng, 12, 10, lora)
     x = rng.standard_normal((3, 5, 12), np.float32)
-    tp = from_jax_params(jp, requires_grad=True)
+    tp = from_jax_params(jp, device="cpu", requires_grad=True)
     xt = torch.tensor(x, requires_grad=True)
     yt = tl.dense(tp, xt)
     _close(yt, jl.dense(jp, x))
@@ -105,7 +105,7 @@ def test_conv2d_with_conv_lora(stride, padding):
     def jfn(p, x):
         return jl.conv2d(p, x, stride=stride, padding=padding)
 
-    tp = from_jax_params(jp, requires_grad=True)
+    tp = from_jax_params(jp, device="cpu", requires_grad=True)
     xt = torch.tensor(x, requires_grad=True)
     yt = tl.conv2d(tp, xt, stride=stride, padding=padding)
     _close(yt, jfn(jp, x))
@@ -121,7 +121,7 @@ def test_norms_activations_and_embeddings():
     x = rng.standard_normal((2, 4, 6, 16), np.float32) * 3 + 1
     norm = {"scale": rng.standard_normal(16).astype(np.float32),
             "bias": rng.standard_normal(16).astype(np.float32)}
-    tn = from_jax_params(norm)
+    tn = from_jax_params(norm, device="cpu")
     xt = torch.tensor(x)
     _close(tl.group_norm(tn, xt, 4), jl.group_norm(norm, x, 4), 2e-5)
     _close(tl.layer_norm(tn, xt), jl.layer_norm(norm, x), 2e-5)

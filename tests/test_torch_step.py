@@ -182,8 +182,10 @@ def tiny():
                               for i, t in enumerate(tables)},
     )
     tfrozen = ts.FrozenModels(
-        unet_params=from_jax_params(_np_tree(unet)), te1_params=from_jax_params(_np_tree(te1)),
-        te2_params=from_jax_params(_np_tree(te2)), schedule=TSchedule.create(device="cpu"),
+        unet_params=from_jax_params(_np_tree(unet), device="cpu"),
+        te1_params=from_jax_params(_np_tree(te1), device="cpu"),
+        te2_params=from_jax_params(_np_tree(te2), device="cpu"),
+        schedule=TSchedule.create(device="cpu"),
         distribution_targets={f"te{i + 1}": tl.DistributionLossTargets.from_embeddings(
             torch.tensor(np.asarray(t))) for i, t in enumerate(tables)},
         unet_config=t_unet.TINY_SDXL_UNET_CONFIG, te1_config=t_clip.TINY_CLIP_L_CONFIG,
@@ -237,7 +239,7 @@ def test_compute_loss_terms_and_grads_match_jax(tiny):
     (loss_j, aux_j), grads_j = jax.jit(jax.value_and_grad(
         lambda t: js.compute_loss(t, jfrozen, jsc, mb, key, jnp.asarray(0)), has_aux=True,
     ))(trainable)
-    ttrain = from_jax_params(_np_tree(trainable), requires_grad=True)
+    ttrain = from_jax_params(_np_tree(trainable), device="cpu", requires_grad=True)
     tmb = {k: torch.tensor(v) for k, v in mb.items()}
     loss_t, aux_t = ts.compute_loss(ttrain, tfrozen, tsc, tmb, 0, **_jax_draws(key, mb))
     loss_t.backward()
@@ -246,7 +248,7 @@ def test_compute_loss_terms_and_grads_match_jax(tiny):
     for k in aux_j:
         _close(aux_t[k], aux_j[k], rtol=1e-5, atol=1e-9)
     _close(loss_t, loss_j, rtol=1e-5)
-    gj = from_jax_params(_np_tree(grads_j))
+    gj = from_jax_params(_np_tree(grads_j), device="cpu")
 
     def close_to_largest(t, j, what):
         _close(t, j, rtol=1e-3, atol=1e-6)
@@ -272,7 +274,7 @@ def test_three_step_adamw_trajectory_matches_jax(tiny):
                           opt_state=opt.init(trainable), key=jax.random.PRNGKey(3))
     step_j = jax.jit(js.make_train_step(jsc, opt))
 
-    ttrain = from_jax_params(_np_tree(trainable), requires_grad=True)
+    ttrain = from_jax_params(_np_tree(trainable), device="cpu", requires_grad=True)
     ti_init = ttrain["ti"]["te1"].detach().clone()
     tstate = ts.TrainState(step=0, trainable=ttrain, optimizer=GroupOptimizer(tcfg, ttrain),
                            generator=torch.Generator().manual_seed(0))
@@ -288,7 +290,7 @@ def test_three_step_adamw_trajectory_matches_jax(tiny):
             _close(m_t[k], m_j[k], rtol=1e-4, atol=1e-9)
     assert tstate.step == 3 and int(state.step) == 3
 
-    final_j = from_jax_params(_np_tree(state.trainable))
+    final_j = from_jax_params(_np_tree(state.trainable), device="cpu")
     for w in ("te1", "te2"):
         _close(ttrain["ti"][w], final_j["ti"][w], rtol=0, atol=1e-6)
     leaves_j = dict(iter_lora_leaves(final_j["unet"]))

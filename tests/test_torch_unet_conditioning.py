@@ -102,10 +102,10 @@ def test_unet_forward_scores_and_lora_grads_match_jax(case, monkeypatch):
         return loss, (out, scores)
 
     (_, (out_j, scores_j)), grads_j = jax.jit(jax.value_and_grad(jax_loss, has_aux=True))(lora)
-    grads_j = from_jax_params(_np_tree(grads_j))
+    grads_j = from_jax_params(_np_tree(grads_j), device="cpu")
 
-    tbase = from_jax_params(_np_tree(base))
-    tlora = from_jax_params(_np_tree(lora), requires_grad=True)
+    tbase = from_jax_params(_np_tree(base), device="cpu")
+    tlora = from_jax_params(_np_tree(lora), device="cpu", requires_grad=True)
     if "fused" in case:
         tbase = fuse_attention_projections(tbase)
     if "flash" in case:
@@ -162,8 +162,8 @@ def test_sdxl_conditioning_with_ti_rows_matches_jax():
 
     tti1, tti2 = (torch.tensor(x, requires_grad=True) for x in (ti1, ti2))
     pe_t, pooled_t, tid_t = t_cond.sdxl_conditioning(
-        from_jax_params(_np_tree(te1)), from_jax_params(_np_tree(te2)), torch.tensor(ids1),
-        torch.tensor(ids2), t_clip.TINY_CLIP_L_CONFIG, t_clip.TINY_CLIP_G_CONFIG, (64, 48),
+        from_jax_params(_np_tree(te1), device="cpu"), from_jax_params(_np_tree(te2), device="cpu"),
+        torch.tensor(ids1), torch.tensor(ids2), t_clip.TINY_CLIP_L_CONFIG, t_clip.TINY_CLIP_G_CONFIG, (64, 48),
         tti1, tti2, dtype=torch.float32,
     )
     for t, j in ((pe_t, pe_j), (pooled_t, pooled_j), (tid_t, tid_j)):
@@ -184,8 +184,8 @@ def test_sd15_conditioning_with_ti_rows_matches_jax():
         j_cond.sd15_conditioning(te1, ids, c1, r, dtype=jnp.float32)[0])))(ti)
     tti = torch.tensor(ti, requires_grad=True)
     pe_t, none1, none2 = t_cond.sd15_conditioning(
-        from_jax_params(_np_tree(te1)), torch.tensor(ids), t_clip.TINY_CLIP_L_CONFIG, tti,
-        dtype=torch.float32,
+        from_jax_params(_np_tree(te1), device="cpu"), torch.tensor(ids), t_clip.TINY_CLIP_L_CONFIG,
+        tti, dtype=torch.float32,
     )
     assert none1 is None and none2 is None
     np.testing.assert_allclose(pe_t.detach().numpy(), np.asarray(pe_j), atol=5e-5, rtol=0)
@@ -196,8 +196,8 @@ def test_sd15_conditioning_with_ti_rows_matches_jax():
 def test_fused_projections_match_jax_layout():
     base = j_unet.init_unet_params(jax.random.PRNGKey(11), j_unet.TINY_SDXL_UNET_CONFIG,
                                    dtype=jnp.float32)
-    fused_j = from_jax_params(_np_tree(j_fuse.fuse_attention_projections(base)))
-    fused_t = fuse_attention_projections(from_jax_params(_np_tree(base)))
+    fused_j = from_jax_params(_np_tree(j_fuse.fuse_attention_projections(base)), device="cpu")
+    fused_t = fuse_attention_projections(from_jax_params(_np_tree(base), device="cpu"))
     tb_j = fused_j["down_blocks"][1]["attentions"][0]["transformer_blocks"][0]
     tb_t = fused_t["down_blocks"][1]["attentions"][0]["transformer_blocks"][0]
     for attn, key in (("attn1", "qkv"), ("attn2", "kv")):

@@ -46,7 +46,7 @@ def _flat(tree, prefix=""):
 
 
 def _assert_same_tensors(port_tree, jax_tree):
-    pt, jt = _flat(port_tree), _flat(from_jax_params(jax_tree))
+    pt, jt = _flat(port_tree), _flat(from_jax_params(jax_tree, device="cpu"))
     assert sorted(pt) == sorted(jt)
     for k in pt:
         assert pt[k].shape == jt[k].shape, k
