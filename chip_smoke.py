@@ -76,10 +76,14 @@ def log(*args) -> None:
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
+    """Device ms per call: the calls queue behind a sleep kernel while the
+    host issues them, so a call's host time (tens of µs, more than a small
+    kernel's device time) does not count."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)  # ~25 ms at the H100's clock
     start.record()
     for _ in range(iters):
         fn()

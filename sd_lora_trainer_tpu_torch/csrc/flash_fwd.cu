@@ -11,30 +11,34 @@
 //
 // Bound on the H100: 4*L^2*d flops per (batch, head) (S = Q K^T and P V)
 // against 4 [L, d] tiles (q, k, v in; o out) and 1 fp32 row (lse) of bytes:
-// tensor-core operations bound it from L = 256 up.
+// tensor-core operations bound it from L = 256 up. At d = 64 the softmax's
+// exp2 of every (query, key) pair takes the special-function units as long
+// as the two products take the tensor cores, so the design keeps both busy
+// at once across warpgroups.
 //
 // Design (the FA3 forward on sm_90a):
 // - One CTA per (q tile of 128 rows, head, batch), L on blockIdx.x: two
 //   consumer warpgroups of 64 q rows each (wgmma's M) and a producer
 //   warpgroup whose registers go to the consumers (setmaxnreg). Its one
 //   working thread loads the Q tile once by TMA and streams the K and V
-//   tiles of BN = 128 keys through a ring of STAGES stages, each with a full
+//   tiles of BN keys through a ring of STAGES stages, each with a full
 //   barrier for K, one for V and an empty barrier the consumers release, so
 //   loads run ahead of the products. It alone keeps the wait watchdog.
+// - d <= 80: BN = 64 and two CTAs per SM (104 registers a consumer thread),
+//   so four consumer warpgroups share an SM and one's softmax runs while
+//   another's products do; d = 160: BN = 128 and one CTA per SM (O alone
+//   takes 80 registers a thread; 240 with setmaxnreg).
 // - Tiles are the chunked, swizzled tiles of hopper_common.cuh; TMA's zero
 //   fill reads d = 40 as 48.
-// - S = Q K^T on SS wgmma (Q and K K-major), 64 x 128 fp32 per warpgroup;
-//   the online softmax runs in registers in the log2 domain (sm_scale*log2e
-//   folded in, off-segment pairs at -inf, row max and sum over the 4 threads
-//   of a quad, exp2 on the SFU), and O is rescaled by alpha. A row with no
-//   live key yet keeps base 0, so nothing is -inf - -inf.
-// - O += P V on RS wgmma: P packed to bf16 A fragments in accumulator
-//   order, V read MN-major (transposed through the descriptor), in column
-//   pieces of 64/32/16 that cover d = 48, 64, 80, 160.
-// - Schedule: S of key tile j+1 is issued before the softmax of tile j's
-//   successor waits, with P(j) V(j) behind it, so the softmax of one tile
-//   overlaps the tensor cores' work on the next (FA3's intra-warpgroup
-//   overlap); see FLASH_FWD_SCHED.
+// - Per key tile and warpgroup: S = Q K^T on SS wgmma (Q and K K-major),
+//   64 x BN fp32; the online softmax in registers in the log2 domain
+//   (sm_scale*log2e folded in, off-segment pairs at -inf, row max and sum
+//   over the 4 threads of a quad, exp2 on the SFU; a row with no live key
+//   yet keeps base 0, so nothing is -inf - -inf); O rescaled by alpha; then
+//   O += P V on RS wgmma: P packed to bf16 A fragments in accumulator order,
+//   V read MN-major (transposed through the descriptor), in column pieces of
+//   64/32/16 that cover d = 48, 64, 80, 160. FA3's intra-warpgroup overlap
+//   and ping-pong schedules were slower here (PERF.md).
 // - Key tiles where the segment mask removes every (query, key) pair of the
 //   CTA are skipped by producer and consumers alike.
 // - Epilogue: O / l in o's dtype and strides; one thread per row writes
@@ -42,19 +46,6 @@
 
 #include "flash_common.cuh"
 #include "hopper_common.cuh"
-
-// 0: per key tile S, softmax, then P V, each waited for;
-// 1: S(j+1) and P(j) V(j) in flight together, the softmax of j+1 overlapping
-//    P(j) V(j);
-// 2: 1, with the two consumer warpgroups taking turns to issue (ping-pong).
-#ifndef FLASH_FWD_SCHED
-#define FLASH_FWD_SCHED 1
-#endif
-// Timing probes that each drop one piece (the results are wrong): 1 the
-// exp2, 2 the whole softmax, 3 P V, 4 S.
-#ifndef FLASH_FWD_PROBE
-#define FLASH_FWD_PROBE 0
-#endif
 
 struct FwdParams {
   void* o;
@@ -64,33 +55,20 @@ struct FwdParams {
   float sm_scale;
 };
 
-#ifndef FLASH_FWD_NWG
-#define FLASH_FWD_NWG 2
-#endif
-#ifndef FLASH_FWD_BN
-#define FLASH_FWD_BN 128
-#endif
-#ifndef FLASH_FWD_CTAS
-#define FLASH_FWD_CTAS 1
-#endif
-
 template <int DP>
 struct FwdConfig {
   static constexpr int CW = DP % 64 == 0 ? 64 : (DP % 32 == 0 ? 32 : 16);  // chunk width
   static constexpr bool WIDE = DP > 96;
-  static constexpr int NWG = WIDE ? 2 : FLASH_FWD_NWG;  // consumer warpgroups of 64 q rows
-  static constexpr int BM = 64 * NWG;                   // q rows
-  static constexpr int BN = WIDE ? 128 : FLASH_FWD_BN;  // keys per step
-  static constexpr int CTAS = WIDE ? 1 : FLASH_FWD_CTAS;  // CTAs per SM
+  static constexpr int BM = 128;             // q rows: 2 consumer warpgroups of 64
+  static constexpr int BN = WIDE ? 128 : 64;  // keys per step
+  static constexpr int CTAS = WIDE ? 1 : 2;   // CTAs per SM
   static constexpr int STAGES = WIDE ? 2 : 3;
-  static constexpr int THREADS = 128 * (NWG + 1);  // consumer warpgroups, then the producer
+  static constexpr int THREADS = 384;  // 2 consumer warpgroups, then the producer
   // registers a thread gets at launch, and a consumer thread once the
-  // producer has given back all but 24 of its own (setmaxnreg)
-  static constexpr int LAUNCH_REGS = (65536 / (THREADS * CTAS) / 8 * 8) > 255
-                                         ? 248 : 65536 / (THREADS * CTAS) / 8 * 8;
-  static constexpr int CONSUMER_REGS_ =
-      (LAUNCH_REGS * THREADS - 128 * 24) / (128 * NWG) / 8 * 8;
-  static constexpr int CONSUMER_REGS = CONSUMER_REGS_ > 240 ? 240 : CONSUMER_REGS_;
+  // producer warpgroup has given back all but 24 of its own (setmaxnreg)
+  static constexpr int LAUNCH_REGS = 65536 / (THREADS * CTAS) / 8 * 8;
+  static constexpr int CONSUMER_REGS = WIDE ? 240 : 104;
+  static_assert(256 * CONSUMER_REGS + 128 * 24 <= THREADS * LAUNCH_REGS, "register budget");
   static constexpr int Q_BYTES = BM * DP * 2;
   static constexpr int KV_BYTES = BN * DP * 2;  // one K or V stage
   static constexpr int OFF_Q = 0;
@@ -107,8 +85,6 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
                      const __grid_constant__ CUtensorMap tm_v, const FwdParams p) {
   using C = FwdConfig<DP>;
   constexpr int CW = C::CW, NC = DP / CW, BM = C::BM, BN = C::BN, S = C::STAGES;
-  constexpr int NWG = C::NWG, CONSUMERS = 128 * NWG;
-  constexpr int SCHED = FLASH_FWD_SCHED, PROBE = FLASH_FWD_PROBE;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -124,7 +100,7 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
     for (int s = 0; s < S; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty[s], CONSUMERS);
+      mbar_init(&empty[s], 256);
     }
     fence_barrier_init();
   }
@@ -136,9 +112,9 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
   auto live = [&](int k0) { return vl == 0 || (q_real && k0 < vl) || (q_pad && k0 + BN > vl); };
   const int nk = L / BN;
 
-  if (threadIdx.x >= CONSUMERS) {  // producer warpgroup: one thread loads
+  if (threadIdx.x >= 256) {  // producer warpgroup: one thread loads
     setmaxnreg_dec<24>();
-    if (threadIdx.x == CONSUMERS) {
+    if (threadIdx.x == 256) {
       mbar_expect_tx(bar_q, C::Q_BYTES);
 #pragma unroll
       for (int c = 0; c < NC; ++c)
@@ -190,7 +166,6 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
 
   // S = Q K^T for the key tile in stage s (Q and K K-major)
   auto issue_s = [&](int s) {
-    if constexpr (PROBE == 4) return;
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < DP / 16; ++kk) {
@@ -204,7 +179,6 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
   };
   // O += P V for the key tile in stage s (P from registers, V MN-major)
   auto issue_pv = [&](int s) {
-    if constexpr (PROBE == 3) return;
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < BN / 16; ++kc) {
@@ -220,10 +194,6 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
   // S of the key tile at k0 -> P (fp32, in place) in the log2 domain; folds
   // the tile into the running max m and sum l and gives O's rescale alpha
   auto softmax = [&](int k0, float* alpha) {
-    if constexpr (PROBE == 2) {
-      alpha[0] = alpha[1] = 1.f;
-      return;
-    }
     float mx[2] = {-INFINITY, -INFINITY};
     if (vl == 0 || (wg_real && k0 + BN <= vl) || (wg_pad && k0 >= vl)) {  // no pair masked
 #pragma unroll
@@ -253,92 +223,37 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
 #pragma unroll
     for (int i = 0; i < BN / 2; ++i) {
       const int r = (i >> 1) & 1;
-      const float x = PROBE == 1 ? fmaf(sacc[i], sl2, -base[r])
-                                 : exp2_approx(fmaf(sacc[i], sl2, -base[r]));
+      const float x = exp2_approx(fmaf(sacc[i], sl2, -base[r]));
       sacc[i] = x;
       rs[r] += x;
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + rs[r];
   };
-  auto rescale = [&](const float* alpha) {
+
+  mbar_wait(bar_q, 0);
+  int it = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    if (!live(kt * BN)) continue;
+    const int s = it % S;
+    const uint32_t ph = (it / S) & 1;
+    mbar_wait(&full_k[s], ph);
+    issue_s(s);
+    wgmma_wait<0>();
+    fence_regs<BN / 2>(sacc);
+    float alpha[2];
+    softmax(kt * BN, alpha);
 #pragma unroll
     for (int i = 0; i < DP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-  };
-  auto pack = [&]() {
 #pragma unroll
     for (int i = 0; i < BN / 4; ++i) pf[i] = pack_bf16(sacc[2 * i], sacc[2 * i + 1]);
-  };
-  auto finish_pv = [&](int s) {  // wait for P V of stage s and release the stage
+    mbar_wait(&full_v[s], ph);
+    issue_pv(s);
     wgmma_wait<0>();
     fence_regs<DP / 2>(o);
     fence_regs<BN / 4>(pf);  // A fragments stay put until their wgmmas are done
     mbar_arrive(&empty[s]);
-  };
-
-  mbar_wait(bar_q, 0);
-  int it = 0;
-  if constexpr (SCHED == 0) {
-    for (int kt = 0; kt < nk; ++kt) {
-      if (!live(kt * BN)) continue;
-      const int s = it % S;
-      const uint32_t ph = (it / S) & 1;
-      mbar_wait(&full_k[s], ph);
-      issue_s(s);
-      wgmma_wait<0>();
-      fence_regs<BN / 2>(sacc);
-      float alpha[2];
-      softmax(kt * BN, alpha);
-      rescale(alpha);
-      pack();
-      mbar_wait(&full_v[s], ph);
-      issue_pv(s);
-      finish_pv(s);
-      ++it;
-    }
-  } else {
-    // P V of the previous live tile (stage prev, phase prev_ph) is issued
-    // behind S of the current one, O's rescale for it (alpha) in between
-    int prev = -1;
-    uint32_t prev_ph = 0;
-    float alpha[2];
-    if constexpr (SCHED == 2) {
-      if (w == NWG - 1) named_barrier_arrive(1, 256);  // warpgroup 0 issues first
-    }
-    for (int kt = 0; kt < nk; ++kt) {
-      if (!live(kt * BN)) continue;
-      const int s = it % S;
-      const uint32_t ph = (it / S) & 1;
-      mbar_wait(&full_k[s], ph);
-      // turn barrier 1 + w: this warpgroup's 128 threads and its predecessor's
-      if constexpr (SCHED == 2) named_barrier(1 + w, 256);  // this warpgroup's turn
-      issue_s(s);
-      if (prev >= 0) {
-        rescale(alpha);
-        mbar_wait(&full_v[prev], prev_ph);
-        issue_pv(prev);
-      }
-      if constexpr (SCHED == 2) named_barrier_arrive(1 + (w + 1) % NWG, 256);  // the next's
-      if (prev >= 0) {
-        wgmma_wait<1>();  // S is done; P V may still run
-      } else {
-        wgmma_wait<0>();
-      }
-      fence_regs<BN / 2>(sacc);
-      softmax(kt * BN, alpha);
-      if (prev >= 0) finish_pv(prev);
-      pack();
-      prev = s;
-      prev_ph = ph;
-      ++it;
-    }
-    rescale(alpha);
-    mbar_wait(&full_v[prev], prev_ph);
-    issue_pv(prev);
-    finish_pv(prev);
-    if constexpr (SCHED == 2) {
-      if (w == 0) named_barrier(1, 256);  // matches the last warpgroup's first arrive
-    }
+    ++it;
   }
 
 #pragma unroll
@@ -349,7 +264,6 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
   const float inv_a = 1.f / l[0], inv_b = 1.f / l[1];
   T* out = static_cast<T*>(p.o) + b * p.so.b + h * p.so.h;
   const int d = p.head_dim;
-  if (row_a >= L) return;  // rows of a last q tile past L (TMA read them as zeros)
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
     const int col = 8 * j + 2 * t;
@@ -368,7 +282,7 @@ __global__ void __launch_bounds__(FwdConfig<DP>::THREADS, FwdConfig<DP>::CTAS)
 template <typename T, int DP>
 static int launch_fwd(const FlashArgs& a, cudaStream_t stream) {
   using C = FwdConfig<DP>;
-  if (a.len % C::BN != 0) return (int)cudaErrorInvalidValue;
+  if (a.len % C::BM != 0 || a.len % C::BN != 0) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
   const bool ok =
       make_bhld_map(&tq, a.q, a.batch, a.heads, a.len, a.head_dim, a.sq.b, a.sq.h, a.sq.l, C::CW,
@@ -391,7 +305,7 @@ static int launch_fwd(const FlashArgs& a, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((a.len + C::BM - 1) / C::BM, a.heads, a.batch);
+  dim3 grid(a.len / C::BM, a.heads, a.batch);
   flash_fwd_kernel<T, DP><<<grid, C::THREADS, smem, stream>>>(tq, tk, tv, p);
   return (int)cudaGetLastError();
 }

@@ -123,10 +123,10 @@ def build_kernels() -> float:
     return time.perf_counter() - t0
 
 
-def start_nvcc(source: Path, out: Path, extra=()) -> subprocess.Popen:
+def start_nvcc(source: Path, out: Path) -> subprocess.Popen:
     """nvcc of one kernel source into a shared library, started in the
     background (stdout and stderr together hold the ptxas report)."""
-    cmd = [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(out), str(source)]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 

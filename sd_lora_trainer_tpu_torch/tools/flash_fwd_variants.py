@@ -1,22 +1,18 @@
-"""Build variants of the flash forward kernel and compare them on one card.
+"""Build versions of the flash forward kernel and compare them on one card.
 
     python -m sd_lora_trainer_tpu_torch.tools.flash_fwd_variants
-        [--build NAME=FLAGS ...] [--variant NAME=DIR ...] [--no-check NAME ...]
-        [--check-only]
+        [--variant NAME=DIR ...] [--no-check NAME ...] [--check-only]
 
-On one CUDA card: builds `csrc/flash_fwd.cu` as it is ("current"), once more
-for each `--build NAME=FLAGS` with the comma-separated nvcc flags FLAGS (e.g.
-`-DFLASH_FWD_SCHED=0,-DFLASH_FWD_BN=64`: the knobs at the top of
-flash_fwd.cu), and the `flash_fwd.cu` of each `--variant NAME=DIR` (another
-`csrc/`, e.g. the parent commit's); prints each build's
+On one CUDA card: builds `csrc/flash_fwd.cu` as it is ("current") and the
+`flash_fwd.cu` of each `--variant NAME=DIR` (another `csrc/`, e.g. the parent
+commit's unpacked with `git archive`, or an edited copy); prints each build's
 registers, spills and ptxas warnings; checks every variant against
 `flash_fwd_ref` (o within 2e-2 of the largest |o|, lse within 1e-3) and two
 launches for equal bits at small and main-path shapes (`--no-check NAME`
 skips a variant's checks: a timing probe that computes something else); then
-times each variant at the main-path shapes in
-alternating order (a, b, ..., b, a) beside PyTorch SDPA's forward. Writes the
-results to chiprun_out/flash_fwd_variants.json and prints them as one JSON
-line.
+times each variant's device time per call at the main-path shapes, in
+alternating order (a, b, ..., b, a), beside PyTorch SDPA's forward, and ends with
+one JSON line of the times.
 """
 
 from __future__ import annotations
@@ -59,15 +55,12 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def build(builds: dict, variants: dict) -> dict:
+def build(variants: dict) -> dict:
     """{variant: library path}, all variants compiled in parallel."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = {"current": (kernels.CSRC / "flash_fwd.cu", ())}
-    for name, flags in builds.items():
-        jobs[name] = (kernels.CSRC / "flash_fwd.cu", tuple(f for f in flags.split(",") if f))
-    jobs.update({name: (Path(d) / "flash_fwd.cu", ()) for name, d in variants.items()})
-    procs = {name: (kernels.start_nvcc(src, OUT_DIR / f"libflash_fwd_{name}.so", extra), src)
-             for name, (src, extra) in jobs.items()}
+    jobs = {"current": kernels.CSRC, **{name: Path(d) for name, d in variants.items()}}
+    procs = {name: (kernels.start_nvcc(d / "flash_fwd.cu", OUT_DIR / f"libflash_fwd_{name}.so"),
+                    d) for name, d in jobs.items()}
     paths = {}
     for name, (proc, src) in procs.items():
         report, _ = proc.communicate()
@@ -110,8 +103,6 @@ def check(shape) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--build", action="append", default=[], metavar="NAME=FLAGS",
-                        help="csrc/flash_fwd.cu built with these comma-separated nvcc flags")
     parser.add_argument("--variant", action="append", default=[], metavar="NAME=DIR",
                         help="a csrc/ directory whose flash_fwd.cu is built and timed beside")
     parser.add_argument("--no-check", action="append", default=[], metavar="NAME",
@@ -124,17 +115,14 @@ def main() -> int:
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}", flush=True)
     libs = {name: kernels.load_library(path, "flash_fwd")
-            for name, path in build(dict(b.split("=", 1) for b in args.build),
-                                    dict(v.split("=", 1) for v in args.variant)).items()}
-    result = {"device": smi, "checks": {}, "times": []}
-    ok = True
+            for name, path in build(dict(v.split("=", 1) for v in args.variant)).items()}
+    times, ok = [], True
     for name, lib in libs.items():
         kernels._LIBS["flash_fwd"] = lib
         if name in args.no_check:
             continue
         for shape in CHECK_SHAPES:
             r = check(shape)
-            result["checks"].setdefault(name, []).append(r)
             ok &= r["ok"]
             print(f"[check] {name} {shape}: " + json.dumps(r), flush=True)
     if ok and not args.check_only:
@@ -151,13 +139,10 @@ def main() -> int:
                 row["ms"].setdefault(name, []).append(ms)
             row["sdpa_fwd_ms"] = cuda_ms(
                 lambda: torch.nn.functional.scaled_dot_product_attention(q, k, v, scale=sc))
-            result["times"].append(row)
+            times.append(row)
             print(f"[time] {shape}: " + json.dumps(row), flush=True)
     kernels._LIBS.pop("flash_fwd", None)
-    out = Path("chiprun_out")
-    out.mkdir(exist_ok=True)
-    (out / "flash_fwd_variants.json").write_text(json.dumps(result, indent=1))
-    print(json.dumps({"ok": ok, **{k: result[k] for k in ("device", "times")}}))
+    print(json.dumps({"ok": ok, "device": smi, "times": times}))
     return 0 if ok else 1
 
 

@@ -43,7 +43,7 @@ def test_editing_one_kernel_renames_only_its_library(tmp_path, monkeypatch):
     assert kernels._lib_path("flash_fwd") == before["flash_fwd"]
 
 
-def _fake_nvcc(source, out, extra=()):
+def _fake_nvcc(source, out):
     """Stands in for nvcc: prints a report and writes the library file."""
     import subprocess
 
