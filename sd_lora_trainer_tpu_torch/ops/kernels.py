@@ -108,7 +108,10 @@ def build_kernels() -> float:
                 BUILD_LOG[name] = report.read_text()
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        procs[name] = (start_nvcc(CSRC / f"{name}.cu", tmp), tmp, out)
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+        ), tmp, out)
     failed = []
     for name, (proc, tmp, out) in procs.items():
         log, _ = proc.communicate()
@@ -123,22 +126,6 @@ def build_kernels() -> float:
     return time.perf_counter() - t0
 
 
-def start_nvcc(source: Path, out: Path) -> subprocess.Popen:
-    """nvcc of one kernel source into a shared library, started in the
-    background (stdout and stderr together hold the ptxas report)."""
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(out), str(source)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-
-
-def load_library(path: Path, name: str) -> ctypes.CDLL:
-    """A built kernel library with its C entry point `name` bound."""
-    lib = ctypes.CDLL(str(path))
-    fn = getattr(lib, name)
-    fn.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return lib
-
-
 def kernel_lib(name: str) -> ctypes.CDLL:
     """The loaded library of one kernel, building all of them at first use."""
     lib = _LIBS.get(name)
@@ -146,7 +133,11 @@ def kernel_lib(name: str) -> ctypes.CDLL:
         path = _lib_path(name)
         if not path.exists():
             build_kernels()
-        lib = _LIBS[name] = load_library(path, name)
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+        _LIBS[name] = lib
     return lib
 
 

@@ -43,21 +43,28 @@ def test_editing_one_kernel_renames_only_its_library(tmp_path, monkeypatch):
     assert kernels._lib_path("flash_fwd") == before["flash_fwd"]
 
 
-def _fake_nvcc(source, out):
-    """Stands in for nvcc: prints a report and writes the library file."""
-    import subprocess
-
-    return subprocess.Popen(["sh", "-c", f"echo 'report of {source.name}'; : > '{out}'"],
-                            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+# Stands in for nvcc: prints a report naming the source (the last argument)
+# and writes an empty library where `-o` points.
+_FAKE_NVCC = """#!/bin/sh
+while [ $# -gt 1 ]; do
+  if [ "$1" = -o ]; then out=$2; fi
+  shift
+done
+echo "report of $(basename "$1")"
+: > "$out"
+"""
 
 
 def test_a_build_keeps_its_ptxas_report_and_a_cached_library_reads_it_back(tmp_path,
                                                                             monkeypatch):
     """The ptxas report (registers, spills) is written beside each library, so
     a run that finds the libraries already built still prints it."""
-    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path)
+    fake = tmp_path / "nvcc"
+    fake.write_text(_FAKE_NVCC)
+    fake.chmod(0o755)
+    monkeypatch.setattr(kernels, "BUILD_DIR", tmp_path / "kernels")
     monkeypatch.setattr(kernels, "BUILD_LOG", {})
-    monkeypatch.setattr(kernels, "start_nvcc", _fake_nvcc)
+    monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
     kernels.build_kernels()
     for name in kernels.KERNEL_SOURCES:
         lib = kernels._lib_path(name)
@@ -68,7 +75,7 @@ def test_a_build_keeps_its_ptxas_report_and_a_cached_library_reads_it_back(tmp_p
     def no_nvcc(*args, **kwargs):
         raise AssertionError("a cached library was rebuilt")
 
-    monkeypatch.setattr(kernels, "start_nvcc", no_nvcc)
+    monkeypatch.setattr(kernels, "_nvcc", no_nvcc)
     monkeypatch.setattr(kernels, "BUILD_LOG", {})
     kernels.build_kernels()
     assert kernels.BUILD_LOG == {n: f"report of {n}.cu\n" for n in kernels.KERNEL_SOURCES}
