@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """Drive the PyTorch port's SDXL LoRA+TI train step on one CUDA card.
 
-    python3 chip_smoke.py [--remat on|off]
+    python3 chip_smoke.py [--plan auto|full|off]
 
-With no arguments it runs the product default (the batch of 4 of
-train_configs/training_args_style_sdxl.json, remat on). Phases, each fatal on
-failure (the script exits non-zero and prints no result):
+With no arguments it trains the batch of 4 of
+train_configs/training_args_style_sdxl.json under two memory plans, one
+after the other: "full" (a bf16 base, every layer recomputed in the
+backward: the plan of the port's first slices), then "auto", the product
+default that `StepConfig.from_config` resolves (the base quantized to int8
+in place, `light+save:flash_out*,flash_lse*`: the plain resnet layers keep
+their activations, the attention layers keep the flash residuals). `--plan`
+runs one plan alone ("off": a bf16 base, nothing recomputed). Phases, each
+fatal on failure (the script exits non-zero and prints no result):
 1. device: refuses to run without CUDA; prints the card's name and power
    limit, builds the flash kernels (flash_fwd, the fused flash_bwd) from
    csrc/ with nvcc and prints each kernel's registers and spills;
@@ -15,25 +21,36 @@ failure (the script exits non-zero and prints no result):
    beside flash_fwd, backward beside flash_bwd), equal bits from two
    flash_fwd launches, and the run-to-run difference of flash_bwd's dq (its
    atomic adds);
-3. reference: the self-attention LoRA gradients of a small SDXL-topology
+3. reference: the self-attention LoRA-B gradients of a small SDXL-topology
    train loss on the card (flash kernels) against the same computation on the
-   CPU (plain attention);
+   CPU (plain attention); on the card, the named plan keeping the flash
+   residuals against full remat (and half the forward launches), and an int8
+   base against the bf16 one;
 4. train: the full-width SDXL UNet (random weights from a seed, bf16), both
    text encoders, rank-16 LoRA on the 577 default sites, 3 TI rows per
-   encoder and the three-group AdamW; 1 warm-up and 3 timed steps at 1024px,
-   DAAM on, then one step under torch.profiler (device time by kernel
-   family), with the kernel launches counted per step.
-It then prints the `kernels` JSON line, the nvidia-smi line, and as the last
-line the result object.
+   encoder and the three-group AdamW; per plan 1 warm-up and 3 timed steps at
+   1024px, DAAM on, then one step under torch.profiler (device time by kernel
+   family), with the kernel launches counted per step;
+5. export: the trained adapters and TI rows through `save_checkpoint` (the
+   kohya LoRA, the embeddings, special_params.json) and back through
+   `load_checkpoint`, and the train state through `save_train_state` and
+   `restore_train_state`, each equal bit for bit.
+It then prints the `kernels` JSON line (launches from the last plan's run),
+the nvidia-smi line, and as the last line the result object.
 """
 
 from __future__ import annotations
 
 import argparse
+import copy
+import dataclasses
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from typing import Optional
 
@@ -42,7 +59,13 @@ import torch
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
 PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 2e-2  # max |kernel - plain| <= KERNEL_TOL * max |plain| (bf16 P and dS)
-TRAIN_CONFIG = "train_configs/training_args_style_sdxl.json"
+ROOT = os.path.dirname(os.path.abspath(__file__))
+TRAIN_CONFIG = os.path.join(ROOT, "train_configs", "training_args_style_sdxl.json")
+# the flash launches of one step per plan: 70 blocks per UNet pass, and full
+# remat runs each forward once more in the backward
+PLAN_LAUNCHES = {"full": {"flash_fwd": 140, "flash_bwd": 70},
+                 "auto": {"flash_fwd": 70, "flash_bwd": 70},
+                 "off": {"flash_fwd": 70, "flash_bwd": 70}}
 REPLACES = {
     "flash_fwd": "sd_lora_trainer_tpu/ops/flash_attention.py:139,144",
     "flash_bwd": "sd_lora_trainer_tpu/ops/flash_attention.py:174,180",
@@ -218,22 +241,48 @@ def phase_kernels():
     return summary
 
 
+def _lora_b_grads(run, draws, device, sites=".attn1.to_"):
+    """The LoRA-B gradients of `sites` from one loss and backward of `run`.
+
+    B starts at 0, so these gradients carry the attention's dQ, dK, dV (and
+    the L1 penalty's subgradient, the same in every run compared)."""
+    from sd_lora_trainer_tpu_torch.models.lora import iter_lora_leaves
+
+    for t in run["tensors"]:
+        t.grad = None
+    loss, _ = run["compute_loss"]({k: v.to(device) for k, v in draws.items()})
+    loss.backward()
+    grads = torch.cat([e["b"].grad.flatten().cpu() for path, e in
+                       iter_lora_leaves(run["state"].trainable["unet"]) if sites in path])
+    return float(loss.detach()), grads
+
+
+def _rel(a, b) -> float:
+    return float((a - b).norm() / b.norm())
+
+
 def phase_reference():
-    """Small SDXL-topology loss and grads: CUDA kernels vs CPU plain attention,
-    from the same weights, batch and draws (made on the CPU, then copied).
-
-    The gradient check is the gate. The loss is only printed: at the init
-    scale the UNet's prediction is near zero, so the loss is about mean(noise^2)
-    and does not see the attention outputs (it agrees to the last bit)."""
-    import dataclasses
-
+    """Small SDXL-topology loss and grads, from the same weights, batch and
+    draws (made on the CPU, then copied):
+    - CUDA kernels vs CPU plain attention (gate 2e-2: the kernels round fp32
+      operands to bf16 for the tensor cores);
+    - on the card, the named plan keeping flash_out/flash_lse vs full remat
+      (gate 1e-3: the same kernels, dq's atomics aside), with half the
+      forward launches;
+    - on the card, an int8 base vs the bf16 one under the resolved default
+      plan (gate 3e-2, the JAX package's int8 bound, tests/test_quant.py).
+    The loss is only printed: at the init scale the UNet's prediction is near
+    zero, so the loss is about mean(noise^2) and does not see the attention
+    outputs (it agrees to the last bit)."""
+    from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
     from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.training.step import StepConfig
 
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # head dim 64, so the flash kernels take the 1024-token level
+    # head dim 64, so the flash kernels take every level (1024 and 256 tokens)
     cfg = dataclasses.replace(TINY_SDXL_UNET_CONFIG, block_out_channels=(64, 128, 128),
                               num_heads=(1, 2, 2))
     cpu = _build_run(cfg, "cpu", torch.float32, batch=2, latent_hw=64, rank=4, fuse=True)
@@ -243,29 +292,40 @@ def phase_reference():
              "offset_noise": torch.randn(shape[0], 1, 1, shape[-1], generator=g),
              "timesteps": torch.tensor([17, 640])}
     cuda = _moved(cpu, "cuda")
-    from sd_lora_trainer_tpu_torch.models.lora import iter_lora_leaves
+    n_blocks = 10  # transformer blocks of the small UNet, all on the flash path
 
-    losses, grads = {}, {}
-    fa.reset_launch_counts()
-    for device, run in (("cpu", cpu), ("cuda", cuda)):
-        loss, _ = run["compute_loss"]({k: v.to(device) for k, v in draws.items()})
-        loss.backward()
-        losses[device] = float(loss.detach())
-        # LoRA-B gradients of the self-attention projections: B starts at 0, so
-        # no L1 term reaches them and they carry exactly the flash dQ/dK/dV
-        grads[device] = torch.cat([
-            e["b"].grad.flatten().cpu() for path, e in
-            iter_lora_leaves(run["state"].trainable["unet"]) if ".attn1.to_" in path
-        ])
-    launched = dict(fa.LAUNCHES)
-    rel = abs(losses["cuda"] - losses["cpu"]) / abs(losses["cpu"])
-    g_rel = float((grads["cuda"] - grads["cpu"]).norm() / grads["cpu"].norm())
-    log(f"[reference] small SDXL loss cuda {losses['cuda']:.6f} cpu {losses['cpu']:.6f} "
+    losses, grads, launched = {}, {}, {}
+    for name, run, device, remat in (("cpu", cpu, "cpu", True), ("full", cuda, "cuda", True),
+                                     ("named", cuda, "cuda", "save:flash_out*,flash_lse*")):
+        run["sc"] = dataclasses.replace(run["sc"], remat=remat)
+        fa.reset_launch_counts()
+        losses[name], grads[name] = _lora_b_grads(run, draws, device)
+        launched[name] = dict(fa.LAUNCHES)
+    rel = abs(losses["full"] - losses["cpu"]) / abs(losses["cpu"])
+    g_rel = _rel(grads["full"], grads["cpu"])
+    log(f"[reference] small SDXL loss cuda {losses['full']:.6f} cpu {losses['cpu']:.6f} "
         f"(rel {rel:.2e}); self-attention LoRA-B gradients rel L2 error {g_rel:.2e} over "
-        f"{grads['cpu'].numel()} values; kernel launches {launched}")
-    check(all(n > 0 for n in launched.values()), "the small run did not reach every kernel")
-    # the kernels round fp32 operands to bf16 (2^-9 relative) for the tensor cores
+        f"{grads['cpu'].numel()} values; kernel launches {launched['full']}")
+    check(all(n > 0 for n in launched["full"].values()), "the small run did not reach every kernel")
     check(g_rel <= 2e-2, f"small-input gradients differ from the CPU reference ({g_rel:.2e})")
+
+    n_rel = _rel(grads["named"], grads["full"])
+    log(f"[reference] plan save:flash_out*,flash_lse* vs remat=True on the card: LoRA-B gradients "
+        f"rel L2 {n_rel:.2e} (gate 1e-3); launches {launched['named']} vs {launched['full']}")
+    check(n_rel <= 1e-3, f"the named plan's gradients differ from full remat's ({n_rel:.2e})")
+    check(launched["full"] == {"flash_fwd": 2 * n_blocks, "flash_bwd": n_blocks}
+          and launched["named"] == {"flash_fwd": n_blocks, "flash_bwd": n_blocks},
+          f"launches {launched}: the named plan must run each flash forward once")
+
+    plan = StepConfig.from_config(cuda["config"], 1.0).remat  # the product's default
+    cuda["sc"] = dataclasses.replace(cuda["sc"], remat=plan)
+    _, bf16 = _lora_b_grads(cuda, draws, "cuda", sites="")
+    freed = quantize_frozen(cuda["frozen"], "int8")
+    _, int8 = _lora_b_grads(cuda, draws, "cuda", sites="")
+    q_rel = _rel(int8, bf16)
+    log(f"[reference] int8 base vs bf16 base under {plan}: all LoRA-B gradients rel L2 "
+        f"{q_rel:.2e} over {bf16.numel()} values (gate 3e-2); {freed * 2**30 / 1e6:.2f} MB freed")
+    check(q_rel <= 3e-2, f"the int8 base's gradients differ from the bf16 base's ({q_rel:.2e})")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
@@ -282,8 +342,6 @@ def _tree_to(tree, device):
 
 def _moved(run, device):
     """A copy of a `_build_run` result with every tensor on `device`."""
-    import dataclasses
-
     frozen = run["frozen"]
     frozen = dataclasses.replace(
         frozen, unet_params=_tree_to(frozen.unet_params, device),
@@ -358,27 +416,25 @@ def _assemble(config, frozen, trainable, batch_d, gen):
     state = ts.TrainState(step=0, trainable=trainable,
                           optimizer=GroupOptimizer(config, trainable), generator=gen)
     mb = {k: (v[0] if v.ndim > 0 else v) for k, v in batch_d.items()}
-    return {
-        "config": config, "state": state, "frozen": frozen, "sc": sc, "batch": batch_d,
-        "generator": gen, "tensors": group_tensors(trainable),
-        "compute_loss": lambda draws: ts.compute_loss(trainable, frozen, sc, mb, 0, gen, **draws),
-    }
+    run = {"config": config, "state": state, "frozen": frozen, "sc": sc, "batch": batch_d,
+           "generator": gen, "tensors": group_tensors(trainable)}
+    # one micro-batch loss under the run's current frozen models and plan
+    run["compute_loss"] = lambda draws: ts.compute_loss(trainable, run["frozen"], run["sc"], mb,
+                                                        0, gen, **draws)
+    return run
 
 
-def phase_train(remat: bool):
-    import dataclasses
-
+def phase_train(plans):
+    """Train the full-width SDXL step under each plan in turn (the state
+    carries over); returns the build and each plan's numbers and launches."""
     from sd_lora_trainer_tpu_torch.models.lora import iter_lora_leaves
     from sd_lora_trainer_tpu_torch.models.unet import SDXL_UNET_CONFIG
-    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
     from sd_lora_trainer_tpu_torch.training import step as ts
 
     hw = 128  # 1024px
     t0 = time.perf_counter()
     run = _build_run(SDXL_UNET_CONFIG, "cuda", torch.bfloat16, batch=None, latent_hw=hw, rank=16,
                      fuse=True, full=True)
-    bs = run["config"].train_batch_size
-    run["sc"] = dataclasses.replace(run["sc"], remat=remat)
     # the config's allow_tf32 (True by default) governs fp32 products on CUDA,
     # as in the upstream PyTorch trainer; the flash kernels do not read it
     torch.backends.cuda.matmul.allow_tf32 = run["config"].allow_tf32
@@ -390,13 +446,39 @@ def phase_train(remat: bool):
     n_sites = len(list(iter_lora_leaves(run["state"].trainable["unet"])))
     log(f"[train] built SDXL in {time.perf_counter() - t0:.1f} s: UNet {n_unet / 1e9:.3f}B, "
         f"TEs {n_te / 1e9:.3f}B params (bf16), LoRA sites {n_sites}, "
-        f"remat={run['sc'].remat}, DAAM on={run['sc'].token_attention_loss_w > 0}")
+        f"DAAM on={run['sc'].token_attention_loss_w > 0}")
     check(n_sites == 577, f"expected 577 LoRA sites, got {n_sites}")
-    train_step = ts.make_train_step(run["sc"])
+    default = ts.StepConfig.from_config(run["config"], img_ratio=1.0)
+    results = {}
+    for plan in plans:
+        results[plan] = _train_plan(run, plan, default)
+    rows = {p: {k: v for k, v in r.items() if k != "launches"} for p, r in results.items()}
+    log("[train] plans " + json.dumps(rows))
+    return run, results
+
+
+def _train_plan(run, plan: str, default):
+    from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
+    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.training import step as ts
+
+    bs = run["config"].train_batch_size
+    freed = 0.0
+    if plan == "auto":
+        # the product default: quantize the frozen base in place (its bf16
+        # weights are freed), then the resolved plan
+        freed = quantize_frozen(run["frozen"], run["config"].resolve_quantize_base())
+        run["sc"] = default
+    else:
+        run["sc"] = dataclasses.replace(default, remat=plan == "full", stash8="", remat_te=False)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    # 70 flash blocks per UNet pass; remat runs each forward once more in backward
-    expected = {"flash_fwd": 140 if remat else 70, "flash_bwd": 70}
-    fa.reset_launch_counts()  # the main path's run starts here
+    log(f"[train] plan {plan}: remat={run['sc'].remat!r}, stash8={run['sc'].stash8!r}, "
+        f"remat_te={run['sc'].remat_te}, base int8={freed > 0} ({freed:.2f} GiB freed)")
+    train_step = ts.make_train_step(run["sc"])
+    expected = PLAN_LAUNCHES[plan]
+    fa.reset_launch_counts()  # this plan's run of the main path starts here
     step_secs, before = [], dict(fa.LAUNCHES)
     for i in range(4):
         torch.cuda.synchronize()
@@ -408,26 +490,28 @@ def phase_train(remat: bool):
         before = dict(fa.LAUNCHES)
         vals = {k: float(v) for k, v in metrics.items()}
         kind = "warm-up" if i == 0 else "timed"
-        log(f"[train] step {i} ({kind}) {secs:.3f} s/step {bs / secs:.3f} imgs/s "
+        log(f"[train] {plan} step {i} ({kind}) {secs:.3f} s/step {bs / secs:.3f} imgs/s "
             f"launches {counts} " + json.dumps(vals))
-        check(all(math.isfinite(x) for x in vals.values()), f"step {i}: non-finite metric")
-        check(vals["grad_norm"] > 0, f"step {i}: grad_norm {vals['grad_norm']} is not > 0")
-        check(counts == expected, f"step {i}: launches {counts} != {expected}")
+        check(all(math.isfinite(x) for x in vals.values()), f"{plan} step {i}: non-finite metric")
+        check(vals["grad_norm"] > 0, f"{plan} step {i}: grad_norm {vals['grad_norm']} is not > 0")
+        check(counts == expected, f"{plan} step {i}: launches {counts} != {expected}")
         if i:
             step_secs.append(secs)
+    launches = dict(fa.LAUNCHES)
     peak = torch.cuda.max_memory_allocated() / 2**30
     mean = sum(step_secs) / len(step_secs)
-    log(f"[train] SDXL 1024px bs={bs} remat {'on' if remat else 'off'}: {mean:.3f} s/step, {bs / mean:.3f} imgs/s "
+    log(f"[train] SDXL 1024px bs={bs} plan {plan}: {mean:.3f} s/step, {bs / mean:.3f} imgs/s "
         f"(mean of {len(step_secs)} timed steps), peak memory {peak:.2f} GiB")
-    busy = _profile_step(train_step, run, expected)
-    log(f"[profile] device busy share of the mean timed step: {busy / mean:.1%}")
-    launches = dict(fa.LAUNCHES)
-    return launches
+    prof = _profile_step(train_step, run, expected)
+    log(f"[profile] {plan}: device busy share of the mean timed step: {prof['device_s'] / mean:.1%}")
+    return {"s_per_step": mean, "imgs_per_s": bs / mean, "timed_steps": step_secs,
+            "peak_gib": peak, "gib_freed": freed, "busy_share": prof["device_s"] / mean,
+            **prof, "launches": launches}
 
 
-def _profile_step(train_step, run, expected):
-    """One more step under torch.profiler; returns its device kernel seconds
-    and logs them by kernel family."""
+def _profile_step(train_step, run, expected) -> dict:
+    """One more step under torch.profiler: its device kernel seconds, kernel
+    count and ms by kernel family (the flash family split by kernel)."""
     from torch.profiler import ProfilerActivity, profile
 
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
@@ -463,12 +547,89 @@ def _profile_step(train_step, run, expected):
     log(f"[profile] profiled step wall {wall:.3f} s (profiler on), {n_launched} device "
         f"kernels, device kernel time {busy:.3f} s; device ms by family: "
         + ", ".join(f"{k} {v / 1e3:.1f}" for k, v in families.items()))
-    flash = {k: us for k, us in kernels if any(w in k.lower() for w in words["flash"])}
+    flash = {k: us / 1e3 for k, us in kernels if any(w in k.lower() for w in words["flash"])}
     log("[profile] flash family by kernel (ms): "
-        + "; ".join(f"{k[:60]} {us / 1e3:.1f}" for k, us in sorted(flash.items())))
+        + "; ".join(f"{k[:60]} {ms:.1f}" for k, ms in sorted(flash.items())))
     top = sorted(kernels, key=lambda kv: -kv[1])[:8]
     log("[profile] top kernels (ms): " + "; ".join(f"{k[:60]} {us / 1e3:.1f}" for k, us in top))
-    return busy
+    return {"device_s": busy, "kernels": n_launched, "family_ms": {k: v / 1e3 for k, v in
+                                                                   families.items()},
+            "flash_ms": {k[:40]: v for k, v in flash.items()}}
+
+
+def phase_export(run):
+    """The trained state through the export surface and back, bit for bit:
+    `save_checkpoint`/`load_checkpoint` (kohya LoRA, TI rows, token map) and
+    `save_train_state`/`restore_train_state`. Written under build/ and
+    removed after."""
+    from sd_lora_trainer_tpu_torch import checkpoint as ck
+    from sd_lora_trainer_tpu_torch.models.lora import iter_lora_leaves
+    from sd_lora_trainer_tpu_torch.training import step as ts
+    from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer
+    from sd_lora_trainer_tpu_torch.utils.safetensors_io import load_safetensors
+
+    config, state, frozen = run["config"], run["state"], run["frozen"]
+    trainable = state.trainable
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="export_", dir=os.path.join(ROOT, "build"))
+    try:
+        t0 = time.perf_counter()
+        rows = [trainable["ti"]["te1"], trainable["ti"]["te2"]]
+        ck.save_checkpoint(tmp, state.step, config.name, "sdxl", config.token_dict, True,
+                           ti_rows=rows, unet_lora=trainable["unet"])
+        save_s = time.perf_counter() - t0
+        name = config.name
+        files = sorted(os.listdir(tmp))
+        want = sorted([f"{name}_sdxl_lora.safetensors", f"{name}_sdxl_embeddings.safetensors",
+                       "special_params.json"])
+        check(files == want, f"export wrote {files}, expected {want}")
+        lora = load_safetensors(os.path.join(tmp, f"{name}_sdxl_lora.safetensors"))
+        n_unet = sum(k.startswith("lora_unet_") for k in lora)
+        emb = load_safetensors(os.path.join(tmp, f"{name}_sdxl_embeddings.safetensors"))
+        shapes = {k: list(v.shape) for k, v in emb.items()}
+        n_sites = len(list(iter_lora_leaves(trainable["unet"])))  # 577 at full width
+        check(n_unet == len(lora) == 3 * n_sites,
+              f"the LoRA file has {n_unet} UNet keys of {len(lora)}, expected 3 x {n_sites}")
+        want_shapes = {"clip_l": list(rows[0].shape), "clip_g": list(rows[1].shape)}
+        check(shapes == want_shapes, f"embeddings {shapes}, expected {want_shapes}")
+        back = ck.load_checkpoint(tmp, frozen.unet_params, [frozen.te1_params, frozen.te2_params],
+                                  device=rows[0].device)
+        leaves = dict(iter_lora_leaves(back["unet_lora"]))
+        same = all(torch.equal(leaves[p]["a"], e["a"]) and torch.equal(leaves[p]["b"], e["b"])
+                   for p, e in iter_lora_leaves(trainable["unet"]))
+        same_rows = all(torch.equal(a, b) for a, b in zip(back["ti_rows"], rows))
+        check(same and len(leaves) == n_sites, "the LoRA read back differs from the trained one")
+        check(same_rows and back["token_dict"] == config.token_dict, "TI rows or token map differ")
+        lora_mb = os.path.getsize(os.path.join(tmp, f"{name}_sdxl_lora.safetensors")) / 1e6
+
+        path = os.path.join(tmp, "train_state.safetensors")
+        t0 = time.perf_counter()
+        ck.save_train_state(path, state)
+        state_s = time.perf_counter() - t0
+        fresh = copy.deepcopy(trainable)
+        with torch.no_grad():
+            for t in _leaves(fresh):
+                t.zero_()
+        template = ts.TrainState(step=0, trainable=fresh, optimizer=GroupOptimizer(config, fresh),
+                                 generator=torch.Generator(state.generator.device).manual_seed(7))
+        ck.restore_train_state(path, template)
+        params = [p for g_ in state.optimizer.opt.param_groups for p in g_["params"]]
+        params_r = [p for g_ in template.optimizer.opt.param_groups for p in g_["params"]]
+        opt, opt_r = state.optimizer.opt.state, template.optimizer.opt.state
+        equal = (len(params) == len(params_r)
+                 and all(torch.equal(a, b) for a, b in zip(params, params_r))
+                 and all(opt[a].keys() == opt_r[b].keys()
+                         and all(torch.equal(opt[a][k], opt_r[b][k]) for k in opt[a])
+                         for a, b in zip(params, params_r))
+                 and template.step == state.step
+                 and template.optimizer.count == state.optimizer.count
+                 and torch.equal(template.generator.get_state(), state.generator.get_state()))
+        check(equal, "the restored train state differs from the live one")
+        log(f"[export] {files}: {n_unet} UNet LoRA keys ({lora_mb:.1f} MB), embeddings {shapes}, "
+            f"read back equal; train state of {len(params)} tensors (step {state.step}) saved in "
+            f"{state_s:.2f} s and restored equal; checkpoint written in {save_s:.2f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def _leaves(tree):
@@ -484,13 +645,15 @@ def _leaves(tree):
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--remat", choices=("on", "off"), default="on",
-                        help="block remat of the train step (default on, the product's 'auto')")
+    parser.add_argument("--plan", choices=("auto", "full", "off"), default=None,
+                        help="train under this memory plan alone (default: full, then auto)")
     args = parser.parse_args()
     smi = phase_device()
     summary = phase_kernels()
     phase_reference()
-    launches = phase_train(args.remat == "on")
+    run, results = phase_train([args.plan] if args.plan else ["full", "auto"])
+    phase_export(run)
+    launches = list(results.values())[-1]["launches"]
     entries = []
     for name, s in summary.items():
         bound, by = _bound_ms(s["flops"], s["bytes"])

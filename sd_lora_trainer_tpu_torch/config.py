@@ -7,10 +7,9 @@ unchanged. A plain dataclass instead of pydantic: the port's machine has no
 pydantic. Unknown JSON keys are ignored, as there; the choice-valued fields
 the port branches on are validated.
 
-The port's first slice runs the SDXL LoRA+TI train step only. Options that
-belong to later slices raise `NotImplementedError` naming the slice instead
-of being silently ignored: an int8 frozen base (`quantize_base`), the named
-`save:`/`light+save:`/`offload:` remat policies, Prodigy and AdamW8bit.
+Options that belong to later slices of the port raise `NotImplementedError`
+naming the slice instead of being silently ignored: the `offload:` remat
+policies, Prodigy and AdamW8bit.
 """
 
 from __future__ import annotations
@@ -191,20 +190,20 @@ class TrainingConfig:
         self.start_time = time.time()
 
     def resolve_quantize_base(self) -> str:
-        """Concrete "none" for the first slice of the port.
-
-        The JAX package's "auto" picks int8 for SDXL LoRA from measurements
-        on a 16 GB TPU v5e; that choice is to be measured on the H100. Until
-        the int8-base slice lands, "auto" resolves to "none" and an explicit
-        int8 request raises."""
+        """Concrete "none" | "int8" | "int8+te" for quantize_base="auto", as
+        the JAX package resolves it: "auto" is int8 for SDXL and "none"
+        otherwise; full finetune (the base trains) and tp (its sharding
+        specs match bf16 weights) get "none" even when int8 was asked for.
+        The JAX choice rests on TPU measurements; an H100-specific "auto"
+        waits for the port's benchmark."""
         q = self.quantize_base
-        if q in ("auto", "none"):
+        if q not in ("auto", "none", "int8", "int8+te"):
+            raise ValueError(f"unknown quantize_base {q!r}")
+        if q == "auto":
+            q = "int8" if self.sd_model_version == "sdxl" else "none"
+        if q in ("int8", "int8+te") and (not self.is_lora or self.sharding_mode == "tp"):
             return "none"
-        if q in ("int8", "int8+te"):
-            raise NotImplementedError(
-                f"quantize_base={q!r}: the int8 frozen base is a later slice of the port"
-            )
-        raise ValueError(f"unknown quantize_base {q!r}")
+        return q
 
     @classmethod
     def from_dict(cls, data: dict) -> "TrainingConfig":

@@ -4,8 +4,11 @@
 package's UNet/CLIP params, LoRA tree or TI rows, as `np.asarray` gives them)
 and returns the port's tree: linear "kernel" (in, out) -> "weight" (out, in),
 conv "kernel" HWIO -> "weight" OIHW, norm "scale" -> "weight", LoRA
-a (in, r) / b (r, out) -> a (r, in) / b (out, r) (convs HWIO -> OIHW), and a
-LoraAlpha-like leaf (anything with `.value`) -> the port's `LoraAlpha`.
+a (in, r) / b (r, out) -> a (r, in) / b (out, r) (convs HWIO -> OIHW), a
+LoraAlpha-like leaf (anything with `.value`) -> the port's `LoraAlpha`, and
+an int8 QTensor-like kernel (anything with `.q` and `.s`) -> the port's
+`QTensor`, its codes and fp32 scales in the torch layout (the output channel
+first).
 Everything else keeps its name and layout. The tensors go to the card unless
 `device` says otherwise (the tests pass "cpu"). It never imports jax.
 """
@@ -16,6 +19,7 @@ import numpy as np
 import torch
 
 from sd_lora_trainer_tpu_torch.models.lora import LoraAlpha
+from sd_lora_trainer_tpu_torch.models.quant import QTensor
 
 
 def _to_torch_layout(x: np.ndarray) -> np.ndarray:
@@ -42,6 +46,13 @@ def from_jax_params(tree, device="cuda", dtype=torch.float32, requires_grad: boo
         t = _tensor(x, device, dtype)
         return t.requires_grad_() if requires_grad and t.is_floating_point() else t
 
+    def kernel(v):
+        if hasattr(v, "q") and hasattr(v, "s"):  # int8 weight: dtype of its dequantization
+            q = _tensor(_to_torch_layout(np.asarray(v.q)), device, None)
+            s = _tensor(_to_torch_layout(np.asarray(v.s)), device, torch.float32)
+            return QTensor(q, s, getattr(torch, np.dtype(v.dtype).name))
+        return leaf(_to_torch_layout(np.asarray(v)))
+
     def conv(node):
         if hasattr(node, "value") and not isinstance(node, np.ndarray):
             return LoraAlpha(node.value)
@@ -54,7 +65,7 @@ def from_jax_params(tree, device="cuda", dtype=torch.float32, requires_grad: boo
             out = {}
             for k, v in node.items():
                 if k == "kernel":
-                    out["weight"] = leaf(_to_torch_layout(np.asarray(v)))
+                    out["weight"] = kernel(v)
                 elif k == "scale":
                     out["weight"] = leaf(v)
                 else:

@@ -12,11 +12,23 @@ The base weights leave their projection dicts (no extra memory); the dicts
 stay as LoRA carriers, and the forward applies each low-rank delta to its
 split slice. Not applicable with DoRA, whose column norm needs the
 per-projection base weight.
+
+An int8 base (models/quant.py) fuses code-wise and scale-wise along the
+output axis: the per-output-channel scales concatenate losslessly.
 """
 
 from __future__ import annotations
 
 import torch
+
+from sd_lora_trainer_tpu_torch.models.quant import QTensor
+
+
+def _concat(weights):
+    if isinstance(weights[0], QTensor):
+        return QTensor(torch.cat([w.q for w in weights], dim=0),
+                       torch.cat([w.s for w in weights], dim=0), weights[0].dtype)
+    return torch.cat(weights, dim=0)
 
 
 def _fuse_tblock(tb: dict) -> dict:
@@ -28,7 +40,7 @@ def _fuse_tblock(tb: dict) -> dict:
         a = dict(tb[attn])
         if not all("weight" in a.get(n, {}) for n in names):
             continue
-        a[fused_key] = {"weight": torch.cat([a[n]["weight"] for n in names], dim=0)}
+        a[fused_key] = {"weight": _concat([a[n]["weight"] for n in names])}
         for n in names:
             sub = dict(a[n])
             del sub["weight"]

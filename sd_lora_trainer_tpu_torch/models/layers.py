@@ -11,14 +11,19 @@ layouts and names:
 - norms: "weight", "bias".
 
 A param dict may carry a "lora" subdict ({"a", "b", "alpha"[, "magnitude"]});
-`dense`/`conv2d` apply the low-rank path when present. LoRA matrices keep the
+`dense`/`conv2d` apply the low-rank path when present. A "weight" may be an
+int8 `QTensor` (models/quant.py): it dequantizes where it is cast. LoRA matrices keep the
 peft/kohya layouts: a (r, in) or (r, in, kh, kw), b (out, r) or (out, r, 1, 1).
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
+
+from sd_lora_trainer_tpu_torch.ops.checkpoint_names import checkpoint_name
 
 
 def _lora_scale(lora: dict) -> float:
@@ -45,11 +50,22 @@ def _apply_lora_dense(p: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor
     return y + delta
 
 
-def dense(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """x W^T (+ LoRA path when p['lora'] exists) (+ bias)."""
-    y = F.linear(x, p["weight"].to(x.dtype))
-    if "lora" in p:
-        y = _apply_lora_dense(p, x, y)
+def dense(p: dict, x: torch.Tensor, name: Optional[str] = None) -> torch.Tensor:
+    """x W^T (+ LoRA path when p['lora'] exists) (+ bias).
+
+    `name` names the output for the selective remat plans; it is attached to
+    the matmul (ops/checkpoint_names.py), which without LoRA takes the bias
+    too, so the name covers one op. The weight's cast (an int8 weight's
+    dequantization) stays outside the name: it is never kept.
+    """
+    w = p["weight"].to(x.dtype)
+    if "lora" not in p:
+        bias = p["bias"].to(x.dtype) if "bias" in p else None
+        with checkpoint_name(name):
+            return F.linear(x, w, bias)
+    with checkpoint_name(name):
+        y = F.linear(x, w)
+    y = _apply_lora_dense(p, x, y)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y

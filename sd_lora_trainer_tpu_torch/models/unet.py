@@ -5,8 +5,19 @@ parameterized by `UNetConfig` covers SD1.5 and SDXL (text_time additional
 embeddings). The public `unet_forward` takes NHWC latents like the JAX one;
 inside, activations stay NHWC in memory and the convs read them as
 channels-last NCHW views. Every down/up-block cross-attention can emit DAAM
-scores under `{name}.transformer_blocks.{i}.attn2`. `remat=True` recomputes
-each down/mid/up layer in the backward pass (`torch.utils.checkpoint`).
+scores under `{name}.transformer_blocks.{i}.attn2`.
+
+`remat` is the JAX package's memory plan for each down/mid/up layer, as
+`torch.utils.checkpoint` (non-reentrant) regions: True recomputes every layer
+in the backward, False none; "light" recomputes the attention-bearing layers
+only; "dots" keeps the outputs of the matmuls without batch dims (mm/addmm);
+"save:<names>" keeps the named activations and recomputes the rest;
+"light+save:<names>" is "light" whose attention layers keep the named ones.
+Names (`attn_out`, `xattn_out`, `ff_hidden`, `flash_out`, `flash_lse`, each
+with its level's `_c{channels}`; a trailing '*' expands over the levels) are
+attached to the ops that produce them (ops/checkpoint_names.py); a kept op is
+not run again in the backward. `stash8` keeps the listed names as row-wise
+int8 (ops/stash8.py). "offload:<names>" is not ported (ROADMAP).
 """
 
 from __future__ import annotations
@@ -16,7 +27,11 @@ from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from sd_lora_trainer_tpu_torch.models.layers import (
     _apply_lora_dense,
@@ -30,7 +45,9 @@ from sd_lora_trainer_tpu_torch.models.layers import (
     upsample_nearest_2x,
 )
 from sd_lora_trainer_tpu_torch.ops.attention import multihead_attention, self_attention
+from sd_lora_trainer_tpu_torch.ops.checkpoint_names import saving_names
 from sd_lora_trainer_tpu_torch.ops.flash_attention import _pad_plan, flash_attention_qualifies
+from sd_lora_trainer_tpu_torch.ops.stash8 import expand_names, stash8 as stash8_op
 
 
 @dataclasses.dataclass(frozen=True)
@@ -135,6 +152,19 @@ def _module_pad_len(b: int, ntok: int, c: int, heads: int, use_flash: bool, devi
     return lp if lp != ntok else 0
 
 
+def _tag(x: torch.Tensor, name: str, stash8_names=frozenset()) -> torch.Tensor:
+    """x as a row-wise int8 stash named `name` when the name is stashed, else
+    x itself: an unstashed name is attached to x's producer instead (see
+    `_producer_name`), since naming x after the fact elides nothing."""
+    return stash8_op(x, name) if name in stash8_names else x
+
+
+def _producer_name(name: str, stash8_names) -> Optional[str]:
+    """The name for the op producing the tensor: none when it is stashed (the
+    int8 pair is kept, not the producer's output)."""
+    return None if name in stash8_names else name
+
+
 def _transformer_block(
     p: dict,
     x: torch.Tensor,  # [B, L, C]
@@ -142,8 +172,11 @@ def _transformer_block(
     heads: int,
     capture: bool,
     use_flash: bool,
+    stash8_names=frozenset(),
     pre_padded: int = 0,
 ):
+    # the channel suffix lets a plan target one resolution level at a time
+    tag = f"_c{x.shape[-1]}"
     h = layer_norm(p["norm1"], x)
     a1 = p["attn1"]
     if "qkv" in a1:
@@ -159,7 +192,13 @@ def _transformer_block(
         q = dense(a1["to_q"], h)
         k = dense(a1["to_k"], h)
         v = dense(a1["to_v"], h)
-    attn = self_attention(q, k, v, heads, use_flash=use_flash, pre_padded=pre_padded)
+    name = f"attn_out{tag}"
+    attn = self_attention(
+        q, k, v, heads, use_flash=use_flash, pre_padded=pre_padded, name_tag=tag,
+        stash8_out=f"flash_out{tag}" in stash8_names,
+        out_name=_producer_name(name, stash8_names),
+    )
+    attn = _tag(attn, name, stash8_names)
     x = x + dense(a1["to_out.0"], attn)
 
     h = layer_norm(p["norm2"], x)
@@ -174,20 +213,27 @@ def _transformer_block(
     else:
         k = dense(a2["to_k"], ctx)
         v = dense(a2["to_v"], ctx)
-    attn, scores = multihead_attention(q, k, v, heads, capture_scores=capture)
+    # a tag of its own: the self-attention's attn_out holds flash_out's bytes
+    name = f"xattn_out{tag}"
+    attn, scores = multihead_attention(q, k, v, heads, capture_scores=capture,
+                                       out_name=_producer_name(name, stash8_names))
     if scores is not None and pre_padded:
         scores = scores[:, :pre_padded]  # DAAM consumers need q_len == h*w
+    attn = _tag(attn, name, stash8_names)
     x = x + dense(a2["to_out.0"], attn)
 
     # GEGLU feed-forward
     h = layer_norm(p["norm3"], x)
-    a, b = dense(p["ff.net.0.proj"], h).chunk(2, dim=-1)
+    name = f"ff_hidden{tag}"
+    h2 = _tag(dense(p["ff.net.0.proj"], h, name=_producer_name(name, stash8_names)), name,
+              stash8_names)
+    a, b = h2.chunk(2, dim=-1)
     x = x + dense(p["ff.net.2"], a * gelu(b))
     return x, scores
 
 
 def _spatial_transformer(p, x, ctx, cfg: UNetConfig, heads: int, name: str, capture: bool,
-                         use_flash: bool):
+                         use_flash: bool, stash8_names=frozenset()):
     """Transformer2DModel: GN -> proj_in -> blocks -> proj_out -> residual."""
     b, hh, ww, c = x.shape
     residual = x
@@ -203,7 +249,7 @@ def _spatial_transformer(p, x, ctx, cfg: UNetConfig, heads: int, name: str, capt
     scores_out = {}
     for i, bp in enumerate(p["transformer_blocks"]):
         h, scores = _transformer_block(
-            bp, h, ctx, heads, capture, use_flash, pre_padded=ntok if pad_to else 0
+            bp, h, ctx, heads, capture, use_flash, stash8_names, pre_padded=ntok if pad_to else 0
         )
         if scores is not None:
             scores_out[f"{name}.transformer_blocks.{i}.attn2"] = scores
@@ -221,20 +267,65 @@ def _spatial_transformer(p, x, ctx, cfg: UNetConfig, heads: int, name: str, capt
 # ---------------------------------------------------------------------------
 
 
-def _remat_wrapper(remat):
-    """Wrap for each down/mid/up layer: recompute in backward when remat."""
+def _checkpointed(context_fn=None):
+    """Wrap for a layer recomputed in the backward (non-reentrant checkpoint);
+    `context_fn` makes a selective policy's contexts."""
+    kw = {} if context_fn is None else {"context_fn": context_fn}
+    return lambda f: (lambda *args: checkpoint(f, *args, use_reentrant=False, **kw))
+
+
+def _named_policy_remat(spec: str, cfg: UNetConfig):
+    """Named-activation remat: full recompute except the ops that produce the
+    listed names, whose outputs are kept ("save:<names>")."""
+    kind, _, raw = spec.partition(":")
+    if kind == "offload":
+        raise NotImplementedError(
+            f"remat={spec!r}: host offload of named activations is not ported "
+            "(a later slice of the port, ROADMAP Queue A item 10)"
+        )
+    if kind != "save":
+        raise ValueError(f"unknown named remat policy {spec!r}: expected 'save:<names>'")
+    return _checkpointed(saving_names(frozenset(expand_names(raw, cfg.block_out_channels))))
+
+
+# the outputs "dots" keeps: matmuls without batch dims (JAX's
+# dots_with_no_batch_dims_saveable), not bmm
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_wrappers(remat, cfg: UNetConfig):
+    """(wrap of the attention-bearing layers and the mid block, wrap of the
+    plain resnet layers) for a remat plan, as the JAX `unet_forward` splits
+    them into `maybe_remat` and `remat_plain`."""
+    def keep(f):
+        return f
+
+    if isinstance(remat, str) and remat.startswith("light+"):
+        # plain resnet layers keep all activations, attention layers the named ones
+        return _named_policy_remat(remat.partition("+")[2], cfg), keep
+    if isinstance(remat, str) and remat.startswith(("save:", "offload:")):
+        wrap = _named_policy_remat(remat, cfg)
+        return wrap, wrap
+    if remat == "dots":
+        # every op of the region passes the policy: torch's selective contexts
+        wrap = _checkpointed(lambda: create_selective_checkpoint_contexts(_save_dots))
+        return wrap, wrap
+    if remat == "light":
+        return _checkpointed(), keep
     if isinstance(remat, str):
-        if remat.startswith(("save:", "offload:", "light+")) or remat in ("light", "dots"):
-            raise NotImplementedError(
-                f"remat={remat!r}: named and selective remat policies are a later slice "
-                "of the port (with the int8 base and stash8); use True or False"
-            )
-        raise ValueError(f"unknown remat policy {remat!r}: expected True or False")
-
-    def remat_fn(f):
-        return lambda *args: checkpoint(f, *args, use_reentrant=False)
-
-    return remat_fn if remat else (lambda f: f)
+        # a typo'd plan silently running full remat would mislead a measurement
+        raise ValueError(
+            f"unknown remat policy {remat!r}: expected True/False, 'light', 'dots', "
+            "'save:<names>', 'light+save:<names>'"
+        )
+    if remat:
+        wrap = _checkpointed()
+        return wrap, wrap
+    return keep, keep
 
 
 def unet_forward(
@@ -247,6 +338,7 @@ def unet_forward(
     capture_attn: bool = False,
     use_flash: bool = True,
     remat=True,
+    stash8: str = "",  # comma list of names kept as row-wise int8 (ops/stash8.py)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Predict noise. Returns (eps_pred [B,H,W,4], attn_scores dict).
 
@@ -255,7 +347,17 @@ def unet_forward(
     """
     ctx = encoder_hidden_states
     groups = cfg.norm_num_groups
-    maybe_remat = _remat_wrapper(remat)
+    if stash8:
+        if not (isinstance(remat, str) and "save:" in remat):
+            # quantizing without a plan that keeps the stash only loses precision
+            raise ValueError(
+                f"stash8={stash8!r} requires a 'save:'-family remat plan whose names "
+                f"include the stashed ones, got remat={remat!r}"
+            )
+        stash8_names = frozenset(expand_names(stash8, cfg.block_out_channels))
+    else:
+        stash8_names = frozenset()
+    maybe_remat, remat_plain = _remat_wrappers(remat, cfg)
 
     t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
     te = params["time_embedding"]
@@ -289,11 +391,12 @@ def unet_forward(
                 if has_attn:
                     x, scores = _spatial_transformer(
                         layer_params["attention"], x, ctx, cfg, cfg.num_heads[i], name,
-                        capture_attn, use_flash,
+                        capture_attn, use_flash, stash8_names,
                     )
                 return x, scores
 
-            x, scores = maybe_remat(down_layer)(layer_params, x, temb, ctx)
+            wrap = maybe_remat if has_attn else remat_plain
+            x, scores = wrap(down_layer)(layer_params, x, temb, ctx)
             attn_scores.update(scores)
             skips.append(x)
         if "downsamplers" in bp:
@@ -306,7 +409,7 @@ def unet_forward(
         if "attentions" in mid:
             x, scores = _spatial_transformer(
                 mid["attentions"][0], x, ctx, cfg, cfg.mid_num_heads, "mid_block.attentions.0",
-                False, use_flash,
+                False, use_flash, stash8_names,
             )
         x = _resnet(mid["resnets"][1], x, temb, groups)
         return x, scores
@@ -331,11 +434,12 @@ def unet_forward(
                 if has_attn:
                     x, scores = _spatial_transformer(
                         layer_params["attention"], x, ctx, cfg, cfg.num_heads[level], name,
-                        capture_attn, use_flash,
+                        capture_attn, use_flash, stash8_names,
                     )
                 return x, scores
 
-            x, scores = maybe_remat(up_layer)(layer_params, x, skips.pop(), temb, ctx)
+            wrap = maybe_remat if has_attn else remat_plain
+            x, scores = wrap(up_layer)(layer_params, x, skips.pop(), temb, ctx)
             attn_scores.update(scores)
         if "upsamplers" in bp:
             x = conv2d(bp["upsamplers"][0]["conv"], upsample_nearest_2x(x), padding=1)

@@ -12,7 +12,8 @@ checkpoint is an LDM-layout safetensors with the families
 Each family converts into the port's trees: the JAX package's diffusers-style
 module paths with the checkpoint's own torch layouts (linear (out, in), conv
 OIHW), so no tensor is transposed. Every tensor of a family must be consumed
-exactly once; leftovers raise.
+exactly once; leftovers raise. `export_ldm_unet` is the inverse of
+`convert_ldm_unet` (the full-finetune export).
 """
 
 from __future__ import annotations
@@ -191,6 +192,77 @@ def convert_ldm_unet(sd: dict, cfg: UNetConfig, dtype=torch.bfloat16, device=Non
     params["up_blocks"] = up_blocks
     c.finish()
     return params
+
+
+def export_ldm_unet(params: dict, cfg: UNetConfig) -> Dict[str, torch.Tensor]:
+    """A UNet tree -> its LDM-layout state dict (float32, keys without the
+    `model.diffusion_model.` prefix), as the JAX package's export. An int8
+    weight (models/quant.py) is written dequantized."""
+    out: Dict[str, torch.Tensor] = {}
+
+    def put(key, p):  # linear, conv and norm dicts share {"weight"[, "bias"]}
+        out[f"{key}.weight"] = p["weight"].float().detach().contiguous()
+        if "bias" in p:
+            out[f"{key}.bias"] = p["bias"].float().detach().contiguous()
+
+    def put_resnet(base, p):
+        for key, name in (("in_layers.0", "norm1"), ("in_layers.2", "conv1"),
+                          ("emb_layers.1", "time_emb_proj"), ("out_layers.0", "norm2"),
+                          ("out_layers.3", "conv2"), ("skip_connection", "conv_shortcut")):
+            if name in p:
+                put(f"{base}.{key}", p[name])
+
+    def put_transformer(base, p):
+        for name in ("norm", "proj_in", "proj_out"):
+            put(f"{base}.{name}", p[name])
+        for k, tb in enumerate(p["transformer_blocks"]):
+            b = f"{base}.transformer_blocks.{k}"
+            for name in ("norm1", "norm2", "norm3", "ff.net.0.proj", "ff.net.2"):
+                put(f"{b}.{name}", tb[name])
+            for attn in ("attn1", "attn2"):
+                for proj in ("to_q", "to_k", "to_v", "to_out.0"):
+                    put(f"{b}.{attn}.{proj}", tb[attn][proj])
+
+    put("input_blocks.0.0", params["conv_in"])
+    put("time_embed.0", params["time_embedding"]["linear_1"])
+    put("time_embed.2", params["time_embedding"]["linear_2"])
+    if "add_embedding" in params:
+        put("label_emb.0.0", params["add_embedding"]["linear_1"])
+        put("label_emb.0.2", params["add_embedding"]["linear_2"])
+    put("out.0", params["conv_norm_out"])
+    put("out.2", params["conv_out"])
+
+    n_levels = len(cfg.block_out_channels)
+    idx = 1
+    for i in range(n_levels):
+        block = params["down_blocks"][i]
+        for j in range(cfg.layers_per_block):
+            put_resnet(f"input_blocks.{idx}.0", block["resnets"][j])
+            if cfg.cross_attention[i]:
+                put_transformer(f"input_blocks.{idx}.1", block["attentions"][j])
+            idx += 1
+        if i < n_levels - 1:
+            put(f"input_blocks.{idx}.0.op", block["downsamplers"][0]["conv"])
+            idx += 1
+
+    put_resnet("middle_block.0", params["mid_block"]["resnets"][0])
+    put_transformer("middle_block.1", params["mid_block"]["attentions"][0])
+    put_resnet("middle_block.2", params["mid_block"]["resnets"][1])
+
+    idx = 0
+    for i in range(n_levels):
+        level = n_levels - 1 - i
+        block = params["up_blocks"][i]
+        for j in range(cfg.layers_per_block + 1):
+            put_resnet(f"output_blocks.{idx}.0", block["resnets"][j])
+            module = 1
+            if cfg.cross_attention[level]:
+                put_transformer(f"output_blocks.{idx}.{module}", block["attentions"][j])
+                module += 1
+            if j == cfg.layers_per_block and i < n_levels - 1:
+                put(f"output_blocks.{idx}.{module}.conv", block["upsamplers"][0]["conv"])
+            idx += 1
+    return out
 
 
 def convert_hf_clip(sd: dict, cfg: CLIPTextConfig, dtype=torch.bfloat16, device=None) -> dict:

@@ -6,6 +6,10 @@ Counterpart of sd_lora_trainer_tpu/ops/attention.py. Two paths:
   also returns the DAAM scores (pre-softmax scaled logits summed over heads).
 - `ops/flash_attention.py`: the CUDA flash kernels for self-attention of
   >= 256 tokens, chosen by `self_attention`.
+
+`out_name` names the attention's output for the selective remat plans: it
+is attached to the op that produces it, the probabilities times V
+(ops/checkpoint_names.py).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from sd_lora_trainer_tpu_torch.ops.checkpoint_names import checkpoint_name
 from sd_lora_trainer_tpu_torch.ops.flash_attention import flash_attention_qualifies, flash_mha
 
 
@@ -35,6 +40,7 @@ def multihead_attention(
     heads: int,
     mask: Optional[torch.Tensor] = None,  # additive, broadcastable to [B,H,Lq,Lk]
     capture_scores: bool = False,
+    out_name: Optional[str] = None,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Plain attention with fp32 softmax. Returns (out [B,Lq,D], scores|None);
     scores are the pre-softmax scaled logits summed over heads, fp32."""
@@ -46,7 +52,12 @@ def multihead_attention(
         logits = logits + mask
     captured = logits.sum(dim=1) if capture_scores else None  # [B,Lq,Lk]
     probs = torch.softmax(logits, dim=-1).to(q.dtype)
-    return _merge_heads(torch.matmul(probs, vh)), captured
+    b, h, lq, lk = probs.shape
+    # torch.matmul's bmm with its operand copies made outside the name
+    p3, v3 = probs.reshape(b * h, lq, lk), vh.reshape(b * h, lk, vh.shape[-1])
+    with checkpoint_name(out_name):
+        out = torch.bmm(p3, v3)
+    return _merge_heads(out.view(b, h, lq, -1)), captured
 
 
 def self_attention(
@@ -56,8 +67,15 @@ def self_attention(
     heads: int,
     use_flash: bool = False,
     pre_padded: int = 0,  # caller padded the sequence; this many tokens are real
+    name_tag: str = "",
+    stash8_out: bool = False,
+    out_name: Optional[str] = None,
 ) -> torch.Tensor:
     """Self-attention over image tokens; the flash kernels when shapes qualify.
+
+    `name_tag` and `stash8_out` go to `flash_mha` (its residuals' names and
+    their int8 stash); `out_name` names the plain path's output. On the flash
+    path the output is the flash op's o, a view, so it names no op of its own.
 
     `pre_padded > 0`: only the first `pre_padded` tokens are real. The flash
     path masks the pad tokens via segment ids; the plain path masks the pad
@@ -65,12 +83,13 @@ def self_attention(
     off by the caller and get a zero cotangent).
     """
     if use_flash and flash_attention_qualifies(q.shape, k.shape, heads, q.device):
-        return flash_mha(q, k, v, heads, pre_padded=pre_padded)
+        return flash_mha(q, k, v, heads, name_tag=name_tag, stash8_out=stash8_out,
+                         pre_padded=pre_padded)
     mask = None
     if pre_padded:
         keymask = torch.arange(k.shape[1], device=k.device) < pre_padded
         mask = torch.where(keymask, 0.0, -1e9).float()[None, None, None, :]
-    out, _ = multihead_attention(q, k, v, heads, mask=mask)
+    out, _ = multihead_attention(q, k, v, heads, mask=mask, out_name=out_name)
     return out
 
 

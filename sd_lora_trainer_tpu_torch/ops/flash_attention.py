@@ -4,11 +4,15 @@ Counterpart of sd_lora_trainer_tpu/ops/flash_attention.py. At 1024px SDXL the
 top self-attention runs at 4096 image tokens; materializing the
 [B, heads, 4096, 4096] logits would waste device memory and bandwidth. Two
 hand-written CUDA kernels (csrc/flash_fwd.cu, csrc/flash_bwd.cu) sit behind
-one `torch.autograd.Function`:
+one custom op, `sd_lora_torch::flash_attention`, with its backward
+registered:
 
 - `flash_fwd`: o and the fp32 log-sum-exp `lse` [B, H, L];
 - `flash_bwd`: dQ, dK and dV in one fused pass from q, k, v, dO, lse and
   di = rowsum(o*dO) (the JAX package's two backward kernels, dK/dV and dQ).
+
+Being an op, it is seen by a selective remat policy, which can keep its
+outputs and skip the forward kernel in the backward (models/unet.py).
 
 Each wrapper takes the plain PyTorch version (`*_ref`) for a tensor on the
 CPU, and for a CUDA tensor launches its kernel or raises. Both kernels read
@@ -22,11 +26,14 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from sd_lora_trainer_tpu_torch.ops.checkpoint_names import checkpoint_name
 from sd_lora_trainer_tpu_torch.ops.kernels import FlashArgs, FlashStrides, kernel_lib
+from sd_lora_trainer_tpu_torch.ops.stash8 import dequantize_rowwise, quantize_rowwise
 
 # Kernel launches per wrapper; only a real CUDA launch counts.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
@@ -264,31 +271,88 @@ def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
     return x if _kernel_readable(x) else x.contiguous()
 
 
-class FlashAttention(torch.autograd.Function):
-    """o = softmax(sm_scale * q k^T + segment mask) v over [B, H, L, d]."""
+def _backward(q, k, v, o, lse, do, sm_scale: float, valid_len: int):
+    if do.is_cuda:
+        do = _kernel_layout(do)
+    # di = rowsum(o * dO) stays plain torch, as it is plain jnp in the JAX bwd
+    di = (o.float() * do.float()).sum(-1).contiguous()
+    return flash_bwd(q, k, v, do, lse, di, sm_scale, valid_len)
+
+
+# The attention is an op of its own, so that a selective remat policy sees it
+# and can keep its outputs (o, lse) for the backward instead of running the
+# forward kernel again (models/unet.py, `flash_out*` and `flash_lse*`).
+
+
+@torch.library.custom_op("sd_lora_torch::flash_attention", mutates_args=())
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
+                    valid_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(o, lse) = softmax(sm_scale * q k^T + segment mask) v over [B, H, L, d];
+    lse carries no gradient."""
+    return flash_fwd(q, k, v, sm_scale, valid_len)
+
+
+@flash_attention.register_fake
+def _(q, k, v, sm_scale, valid_len):
+    return _empty_like_heads(q), q.new_empty(q.shape[:3], dtype=torch.float32)
+
+
+def _setup_context(ctx, inputs, output):
+    q, k, v, sm_scale, valid_len = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.sm_scale, ctx.valid_len = sm_scale, valid_len
+
+
+def _flash_attention_backward(ctx, do, _dlse):
+    q, k, v, o, lse = ctx.saved_tensors
+    return _backward(q, k, v, o, lse, do, ctx.sm_scale, ctx.valid_len) + (None, None)
+
+
+flash_attention.register_autograd(_flash_attention_backward, setup_context=_setup_context)
+
+
+@torch.library.custom_op("sd_lora_torch::flash_attention_stash8", mutates_args=())
+def flash_attention_stash8(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sm_scale: float,
+                           valid_len: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(int8 codes of o, their fp32 row scales, lse): o as a row-wise int8 pair
+    (ops/stash8.py), which is what a plan that saves `flash_out` keeps."""
+    o, lse = flash_fwd(q, k, v, sm_scale, valid_len)
+    return quantize_rowwise(o) + (lse,)
+
+
+@flash_attention_stash8.register_fake
+def _(q, k, v, sm_scale, valid_len):
+    return (torch.empty_like(q, dtype=torch.int8), q.new_empty(q.shape[:3] + (1,)),
+            q.new_empty(q.shape[:3]))
+
+
+class _FlashAttentionStash8(torch.autograd.Function):
+    """Flash attention whose output õ is the dequantized int8 pair: õ is both
+    the output and the backward's residual, as in the JAX `stash8_out`."""
 
     @staticmethod
-    def forward(ctx, qh, kh, vh, sm_scale: float, valid_len: int):
-        if qh.is_cuda:
-            qh, kh, vh = _kernel_layout(qh), _kernel_layout(kh), _kernel_layout(vh)
-        o, lse = flash_fwd(qh, kh, vh, sm_scale, valid_len)
-        ctx.save_for_backward(qh, kh, vh, o, lse)
+    def forward(ctx, q, k, v, sm_scale: float, valid_len: int, names):
+        with checkpoint_name(*names):
+            qo, so, lse = flash_attention_stash8(q, k, v, sm_scale, valid_len)
+        ctx.save_for_backward(q, k, v, qo, so, lse)
         ctx.sm_scale, ctx.valid_len = sm_scale, valid_len
-        return o
+        return dequantize_rowwise(qo, so, q.dtype)
 
     @staticmethod
     def backward(ctx, do):
-        qh, kh, vh, o, lse = ctx.saved_tensors
-        if do.is_cuda:
-            do = _kernel_layout(do)
-        # di = rowsum(o * dO) stays plain torch, as it is plain jnp in the JAX bwd
-        di = (o.float() * do.float()).sum(-1).contiguous()
-        dq, dk, dv = flash_bwd(qh, kh, vh, do, lse, di, ctx.sm_scale, ctx.valid_len)
-        return dq, dk, dv, None, None
+        q, k, v, qo, so, lse = ctx.saved_tensors
+        o = dequantize_rowwise(qo, so, q.dtype)
+        return _backward(q, k, v, o, lse, do, ctx.sm_scale, ctx.valid_len) + (None,) * 3
 
 
-def flash_mha(q, k, v, heads: int, pre_padded: int = 0) -> torch.Tensor:
+def flash_mha(q, k, v, heads: int, name_tag: str = "", stash8_out: bool = False,
+              pre_padded: int = 0) -> torch.Tensor:
     """[B, L, D] multihead self-attention through the flash kernels.
+
+    The op's outputs are named `flash_out{name_tag}` and `flash_lse{name_tag}`
+    (ops/checkpoint_names.py): a remat plan that saves both keeps them and
+    does not run the forward kernel again in the backward. `stash8_out` keeps
+    o as a row-wise int8 pair instead (ops/stash8.py).
 
     `pre_padded > 0`: the caller already padded the sequence to this length's
     `_pad_plan` (models/unet.py pads once per spatial-transformer module);
@@ -313,9 +377,17 @@ def flash_mha(q, k, v, heads: int, pre_padded: int = 0) -> torch.Tensor:
         raise ValueError(f"flash_mha is self-attention only, got lq={lq}, lk={lk}")
 
     def split(x):
-        return x.unflatten(-1, (heads, head_dim)).transpose(1, 2)
+        x = x.unflatten(-1, (heads, head_dim)).transpose(1, 2)
+        return _kernel_layout(x) if x.is_cuda else x
 
-    out = FlashAttention.apply(split(q), split(k), split(v), sm_scale, valid)
+    names = (f"flash_out{name_tag}", f"flash_lse{name_tag}")
+    # the head split (and any copy for the kernels' layout) stays outside the name
+    qh, kh, vh = split(q), split(k), split(v)
+    if stash8_out:
+        out = _FlashAttentionStash8.apply(qh, kh, vh, sm_scale, valid, names)
+    else:
+        with checkpoint_name(*names):
+            out, _ = flash_attention(qh, kh, vh, sm_scale, valid)
     out = out.transpose(1, 2).reshape(b, out.shape[2], d)
     if valid and not pre_padded:
         out = out[:, :lq]

@@ -15,6 +15,9 @@ import torch
 
 from sd_lora_trainer_tpu_torch.diffusion.losses import DistributionLossTargets
 
+# the TI rows' keys in the embeddings file, per encoder (CLIP-L, OpenCLIP-bigG)
+TXT_ENCODER_KEYS = ["clip_l", "clip_g"]
+
 
 def initialize_new_tokens(
     token_tables: List[Optional[torch.Tensor]],  # frozen [V, D] per encoder

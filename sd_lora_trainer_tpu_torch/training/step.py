@@ -20,9 +20,10 @@ update per group.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from sd_lora_trainer_tpu_torch.config import TrainingConfig
 from sd_lora_trainer_tpu_torch.diffusion.losses import (
@@ -81,25 +82,44 @@ class StepConfig:
     is_lora: bool
     train_ti: bool
     use_flash: bool
-    remat: bool
+    remat: Union[bool, str]  # False | True | a plan of models/unet.py
     max_train_steps: int
     ti_freeze_f: float
     ti_lr: float
     daam_img_ratio: float
+    # names whose remat stash is row-wise int8 (ops/stash8.py); "" = none
+    stash8: str = ""
+    # recompute the text-encoder conditioning in the backward, nothing kept:
+    # set by quantize_base "int8+te", whose dequantized TE weights would
+    # otherwise stay alive from forward to backward
+    remat_te: bool = False
 
     @classmethod
     def from_config(cls, config: TrainingConfig, img_ratio: float) -> "StepConfig":
-        config.resolve_quantize_base()  # raises for the int8 base (a later slice)
-        if config.remat_stash8:
-            raise NotImplementedError("remat_stash8: stash8 is a later slice of the port")
         remat = config.remat
+        quantize_base = config.resolve_quantize_base()
         if remat == "auto":
-            # The JAX package's "auto" plans rest on 16 GB TPU v5e measurements;
-            # the H100 choice is still to be measured. Full block remat for now.
-            remat = True
-        elif isinstance(remat, str):
+            # the JAX package's plans, resolved here so every consumer gets a
+            # concrete one: SD1.5 at <= 512px keeps all activations; an int8
+            # base pays for "light" (plain resnet layers keep theirs) with the
+            # flash residuals kept; a bf16 base recomputes every layer but the
+            # flash residuals. They rest on TPU measurements; an H100 choice
+            # waits for the port's benchmark.
+            sizes = config.train_img_size
+            if not sizes:
+                r = config.resolution
+                sizes = r if isinstance(r, (list, tuple)) else (r, r)
+            if (config.sd_model_version == "sd15" and max(sizes) <= 512
+                    and config.train_batch_size <= 16):
+                remat = False
+            elif quantize_base in ("int8", "int8+te"):
+                remat = "light+save:flash_out*,flash_lse*"
+            else:
+                remat = "save:flash_out*,flash_lse*"
+        elif isinstance(remat, str) and "offload:" in remat:
             raise NotImplementedError(
-                f"remat={remat!r}: named/selective remat policies are a later slice of the port"
+                f"remat={remat!r}: host offload of named activations is a later slice of "
+                "the port (ROADMAP Queue A item 10)"
             )
         return cls(
             snr_gamma=config.snr_gamma,
@@ -113,7 +133,9 @@ class StepConfig:
             is_lora=config.is_lora,
             train_ti=not config.disable_ti,
             use_flash=True,
-            remat=bool(remat),
+            remat=remat,
+            stash8=config.remat_stash8,
+            remat_te=quantize_base == "int8+te",
             max_train_steps=config.max_train_steps,
             ti_freeze_f=config.freeze_ti_after_completion_f,
             ti_lr=config.ti_lr,
@@ -162,21 +184,30 @@ def compute_loss(
     latent = ((mean.float() + std * latent_eps.float()) * batch["latent_scale"]).to(mean.dtype)
 
     ti = trainable.get("ti", {})
-    if frozen.version == "sdxl":
-        prompt_embeds, pooled, add_time_ids = sdxl_conditioning(
-            _te_params_with_adapters(frozen, trainable, "te1"),
-            _te_params_with_adapters(frozen, trainable, "te2"),
-            batch["input_ids"], batch["input_ids_2"],
-            frozen.te1_config, frozen.te2_config, frozen.resolution,
-            ti_rows_1=ti.get("te1"), ti_rows_2=ti.get("te2"), dtype=latent.dtype,
-        )
-        added_cond = {"text_embeds": pooled, "time_ids": add_time_ids}
-    else:
-        prompt_embeds, _, _ = sd15_conditioning(
+
+    def conditioning():
+        if frozen.version == "sdxl":
+            return sdxl_conditioning(
+                _te_params_with_adapters(frozen, trainable, "te1"),
+                _te_params_with_adapters(frozen, trainable, "te2"),
+                batch["input_ids"], batch["input_ids_2"],
+                frozen.te1_config, frozen.te2_config, frozen.resolution,
+                ti_rows_1=ti.get("te1"), ti_rows_2=ti.get("te2"), dtype=latent.dtype,
+            )
+        pe, _, _ = sd15_conditioning(
             _te_params_with_adapters(frozen, trainable, "te1"), batch["input_ids"],
             frozen.te1_config, ti_rows=ti.get("te1"), dtype=latent.dtype,
         )
-        added_cond = None
+        return pe, None, None
+
+    if sc.remat_te:
+        # int8 text encoders: recomputing the conditioning keeps only the
+        # codes and its [B, 77, *] outputs alive, not the dequantized weights
+        prompt_embeds, pooled, add_time_ids = checkpoint(conditioning, use_reentrant=False)
+    else:
+        prompt_embeds, pooled, add_time_ids = conditioning()
+    added_cond = ({"text_embeds": pooled, "time_ids": add_time_ids}
+                  if frozen.version == "sdxl" else None)
 
     if noise is None:
         noise = draw(latent.shape, latent.dtype)
@@ -195,7 +226,7 @@ def compute_loss(
     model_pred, attn_scores = unet_forward(
         _unet_params_with_adapters(frozen, trainable, sc), noisy_latent, timesteps,
         prompt_embeds, frozen.unet_config, added_cond=added_cond, capture_attn=capture,
-        use_flash=sc.use_flash, remat=sc.remat,
+        use_flash=sc.use_flash, remat=sc.remat, stash8=sc.stash8,
     )
 
     mask = batch["mask"]

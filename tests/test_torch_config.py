@@ -50,11 +50,14 @@ def _cfg(**kw):
 
 
 @pytest.mark.parametrize("kw", [
-    {"quantize_base": "int8"}, {"quantize_base": "int8+te"},
-    {"remat": "save:flash_out*,flash_lse*"}, {"remat": "light+save:flash_out*"},
-    {"remat": "offload:flash_out*"}, {"remat_stash8": "flash_out*"},
+    {"remat": "offload:flash_out*"}, {"remat": "offload:flash_out*,flash_lse*"},
+    {"remat": "light+offload:flash_out*"}, {"remat": "offload:attn_out*", "quantize_base": "int8"},
+    {"remat": "offload:ff_hidden*", "quantize_base": "int8+te"},
+    {"remat": "light+offload:flash_out*,flash_lse*", "sd_model_version": "sd15"},
 ])
 def test_later_slice_options_raise(kw):
+    """Host offload of named activations (`offload:`) is the one remat plan
+    left for a later slice; int8, the named plans and stash8 are ported."""
     with pytest.raises(NotImplementedError, match="later slice"):
         StepConfig.from_config(_cfg(**kw), 1.0)
 
@@ -67,11 +70,20 @@ def test_later_slice_optimizers_raise(kw):
 
 
 def test_auto_resolves_to_remat_and_no_int8():
+    """"auto" resolves as in the JAX package: an int8 base for SDXL LoRA with
+    `light+save` keeping the flash residuals; "none" and a bf16 base with the
+    flash residuals kept under full remat otherwise (tests/test_torch_step.py
+    holds the whole grid against JAX)."""
     sc = StepConfig.from_config(_cfg(), 1.0)
-    assert sc.remat is True and sc.use_flash
-    assert _cfg().resolve_quantize_base() == "none"
+    assert sc.remat == "light+save:flash_out*,flash_lse*" and sc.use_flash
+    assert _cfg().resolve_quantize_base() == "int8"
+    assert _cfg(quantize_base="none").resolve_quantize_base() == "none"
+    sc = StepConfig.from_config(_cfg(quantize_base="none"), 1.0)
+    assert sc.remat == "save:flash_out*,flash_lse*" and not sc.remat_te and not sc.stash8
     with pytest.raises(ValueError):
         _cfg(concept_mode="portrait")
+    with pytest.raises(ValueError):
+        _cfg(quantize_base="int4").resolve_quantize_base()
 
 
 @pytest.mark.parametrize("kw", [{}, {"disable_ti": True, "freeze_unet_before_completion_f": 0.2},

@@ -126,3 +126,35 @@ def test_self_attention_on_cuda_raises_for_a_head_dim_without_a_kernel(cuda_devi
     with pytest.raises(ValueError, match="no flash kernel"):
         self_attention(x, x, x, heads=2, use_flash=True)
     assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
+
+
+@pytest.mark.cuda
+def test_named_plan_launches_the_forward_kernel_once(cuda_device):
+    """Under `save:flash_out*,flash_lse*` the flash op's outputs are kept, so
+    its forward kernel runs once per block; full remat runs it again in the
+    backward. The gradients agree (dq's atomic adds aside)."""
+    from sd_lora_trainer_tpu_torch.models import unet as t_unet
+
+    g = torch.Generator(device=cuda_device).manual_seed(2)
+    x, w = (torch.randn(*shape, generator=g, device=cuda_device) for shape in ((2, 300, 128),
+                                                                              (128, 384)))
+    x, w = x.bfloat16(), (w * 0.1).bfloat16()
+
+    def block(x, w):
+        q, k, v = (x @ w).chunk(3, dim=-1)
+        return fa.flash_mha(q, k, v, 2, name_tag="_c128")
+
+    wraps = {"full": t_unet._remat_wrappers(True, t_unet.SDXL_UNET_CONFIG)[0],
+             "named": t_unet._remat_wrappers("save:flash_out_c128,flash_lse_c128",
+                                             t_unet.SDXL_UNET_CONFIG)[0]}
+    grads = {}
+    for name, wrap in wraps.items():
+        leaf = w.detach().requires_grad_()
+        fa.reset_launch_counts()
+        out = wrap(block)(x, leaf)
+        (out.float() ** 2).sum().backward()
+        torch.cuda.synchronize()
+        want = {"flash_fwd": 2 if name == "full" else 1, "flash_bwd": 1}
+        assert fa.LAUNCHES == want, (name, fa.LAUNCHES)
+        grads[name] = leaf.grad
+    _close(grads["named"], grads["full"])

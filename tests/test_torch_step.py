@@ -11,6 +11,8 @@ handed to the port explicitly. Tolerances, each with its reason:
   within 1e-4 of its largest element (summation order through ~20 layers;
   measured about 6e-6). That is tight enough to see the
   L1 penalty's subgradient at LoRA-B = 0, which is 4.6e-7 per element here;
+- the same step on an int8 frozen base (both packages on JAX's codes) under
+  `light+save:attn_out*`: the same tolerances;
 - the 3-step AdamW trajectory: every metric 1e-4 relative, the TI rows 1e-6
   and the LoRA tensors 1e-5 absolute. Adam's first steps divide each
   gradient by its own magnitude, so a rounding difference in a gradient near
@@ -30,6 +32,7 @@ from sd_lora_trainer_tpu.config import TrainingConfig as JConfig
 from sd_lora_trainer_tpu.diffusion import losses as jl
 from sd_lora_trainer_tpu.diffusion.schedulers import DDPMSchedule as JSchedule
 from sd_lora_trainer_tpu.models.clip import init_clip_params as j_init_clip
+from sd_lora_trainer_tpu.models import quant as jq
 from sd_lora_trainer_tpu.models.lora import create_lora_params as j_create_lora
 from sd_lora_trainer_tpu.models.synthesize import TINY_CLIP_G_CONFIG, TINY_CLIP_L_CONFIG
 from sd_lora_trainer_tpu.models.unet import TINY_SDXL_UNET_CONFIG, init_unet_params
@@ -42,6 +45,7 @@ from sd_lora_trainer_tpu_torch.interop import from_jax_params
 from sd_lora_trainer_tpu_torch.models import clip as t_clip
 from sd_lora_trainer_tpu_torch.models import unet as t_unet
 from sd_lora_trainer_tpu_torch.models.lora import iter_lora_leaves
+from sd_lora_trainer_tpu_torch.models.quant import QTensor, quantize_frozen
 from sd_lora_trainer_tpu_torch.training import step as ts
 from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer
 
@@ -225,15 +229,21 @@ def _jax_draws(key, batch):
 
 def _step_configs():
     jcfg, tcfg = _configs()
-    jsc = dataclasses.replace(js.StepConfig.from_config(jcfg, 1.0), remat=False)
+    jsc = js.StepConfig.from_config(jcfg, 1.0)
     tsc = ts.StepConfig.from_config(tcfg, 1.0)
-    assert tsc.remat is True  # "auto" -> full block remat on the port
-    return jcfg, tcfg, jsc, tsc
+    # "auto" with a bf16 base: full remat keeping the flash residuals, which
+    # the tiny widths do not reach (their attention is plain)
+    assert tsc.remat == jsc.remat == "save:flash_out*,flash_lse*"
+    return jcfg, tcfg, dataclasses.replace(jsc, remat=False), tsc
 
 
 def test_compute_loss_terms_and_grads_match_jax(tiny):
     jfrozen, tfrozen, trainable, batch = tiny
     _, _, jsc, tsc = _step_configs()
+    _check_loss_and_grads(jfrozen, tfrozen, jsc, tsc, trainable, batch)
+
+
+def _check_loss_and_grads(jfrozen, tfrozen, jsc, tsc, trainable, batch):
     mb = {k: (v[0] if v.ndim > 0 else v) for k, v in batch.items()}
     key = jax.random.PRNGKey(2)
     (loss_j, aux_j), grads_j = jax.jit(jax.value_and_grad(
@@ -264,6 +274,80 @@ def test_compute_loss_terms_and_grads_match_jax(tiny):
             close_to_largest(entry[m].grad, leaves_j[path][m], (path, m))
             n += 1
     assert n == 2 * len(leaves_j) > 0
+
+
+def test_int8_base_step_matches_jax(tiny):
+    """One step's loss and LoRA/TI gradients on an int8 frozen base under
+    `light+save:attn_out*`, both packages on JAX's codes and scales."""
+    jfrozen, tfrozen, trainable, batch = tiny
+    _, _, jsc, tsc = _step_configs()
+    jq_unet = jq.quantize_base_weights(jfrozen.unet_params)
+    jfrozen_q = dataclasses.replace(jfrozen, unet_params=jq_unet)
+    tfrozen_q = dataclasses.replace(tfrozen, unet_params=from_jax_params(_np_tree(jq_unet),
+                                                                         device="cpu"))
+    assert isinstance(tfrozen_q.unet_params["mid_block"]["resnets"][0]["conv1"]["weight"],
+                      QTensor)
+    plan = "light+save:attn_out*"
+    _check_loss_and_grads(jfrozen_q, tfrozen_q, dataclasses.replace(jsc, remat=plan),
+                          dataclasses.replace(tsc, remat=plan), trainable, batch)
+
+
+def test_remat_te_moves_the_ti_rows(tiny):
+    """quantize_base "int8+te": int8 text encoders, the conditioning
+    recomputed in the backward (`remat_te`): the same gradients as without
+    the recompute, and the TI rows train through it."""
+    _, tfrozen, trainable, batch = tiny
+    tcfg = _configs()[1]
+    tcfg.quantize_base = "int8+te"
+    sc = ts.StepConfig.from_config(tcfg, 1.0)
+    assert sc.remat_te and sc.remat == "light+save:flash_out*,flash_lse*"
+    frozen = dataclasses.replace(tfrozen)
+    assert quantize_frozen(frozen, "int8+te") > 0
+    assert isinstance(frozen.te2_params["text_model"]["encoder"]["layers"][0]["mlp"]["fc1"]["weight"],
+                      QTensor)
+    mb = {k: torch.tensor(v[0] if v.ndim > 0 else v) for k, v in batch.items()}
+    draws = _jax_draws(jax.random.PRNGKey(4), {k: np.asarray(v) for k, v in mb.items()})
+    grads = {}
+    for remat_te in (True, False):
+        ttrain = from_jax_params(_np_tree(trainable), device="cpu", requires_grad=True)
+        loss, _ = ts.compute_loss(ttrain, frozen, dataclasses.replace(sc, remat_te=remat_te), mb,
+                                  0, **draws)
+        loss.backward()
+        grads[remat_te] = [ttrain["ti"][w].grad for w in ("te1", "te2")]
+    for a, b in zip(grads[True], grads[False]):
+        assert torch.equal(a, b) and a.abs().sum() > 0
+    ttrain = from_jax_params(_np_tree(trainable), device="cpu", requires_grad=True)
+    before = [ttrain["ti"][w].detach().clone() for w in ("te1", "te2")]
+    state = ts.TrainState(step=0, trainable=ttrain, optimizer=GroupOptimizer(tcfg, ttrain),
+                          generator=torch.Generator().manual_seed(0))
+    ts.make_train_step(sc)(state, {k: torch.tensor(v) for k, v in batch.items()}, frozen)
+    for w, b in zip(("te1", "te2"), before):
+        assert (ttrain["ti"][w].detach() - b).abs().max() > 0, w
+
+
+_GRID = {
+    "sd15_512": dict(sd_model_version="sd15", resolution=512),
+    "sd15_1024": dict(sd_model_version="sd15", resolution=1024),
+    "sd15_512_bs32": dict(sd_model_version="sd15", resolution=512, train_batch_size=32),
+    "sdxl": dict(sd_model_version="sdxl", resolution=1024),
+    "sdxl_full_finetune": dict(sd_model_version="sdxl", resolution=1024, is_lora=False),
+    "sdxl_tp": dict(sd_model_version="sdxl", resolution=1024, sharding_mode="tp"),
+}
+
+
+@pytest.mark.parametrize("quantize_base", ["auto", "none", "int8", "int8+te"])
+@pytest.mark.parametrize("case", sorted(_GRID))
+def test_step_config_resolves_like_jax(case, quantize_base):
+    kw = dict(lora_training_urls="x", concept_mode="style", _testing_no_output_dir=True,
+              quantize_base=quantize_base, remat_stash8="", **_GRID[case])
+    jcfg, tcfg = JConfig(**kw), TConfig(**kw)
+    assert tcfg.resolve_quantize_base() == jcfg.resolve_quantize_base()
+    j, t = js.StepConfig.from_config(jcfg, 1.0), ts.StepConfig.from_config(tcfg, 1.0)
+    assert (t.remat, t.stash8, t.remat_te) == (j.remat, j.stash8, j.remat_te)
+    explicit = dict(kw, remat="save:attn_out*,ff_hidden*", remat_stash8="ff_hidden*")
+    j = js.StepConfig.from_config(JConfig(**explicit), 1.0)
+    t = ts.StepConfig.from_config(TConfig(**explicit), 1.0)
+    assert (t.remat, t.stash8, t.remat_te) == (j.remat, j.stash8, j.remat_te)
 
 
 def test_three_step_adamw_trajectory_matches_jax(tiny):
