@@ -34,9 +34,22 @@ fatal on failure (the script exits non-zero and prints no result):
 5. export: the trained adapters and TI rows through `save_checkpoint` (the
    kohya LoRA, the embeddings, special_params.json) and back through
    `load_checkpoint`, and the train state through `save_train_state` and
-   `restore_train_state`, each equal bit for bit.
-It then prints the `kernels` JSON line (launches from the last plan's run),
-the nvidia-smi line, and as the last line the result object.
+   `restore_train_state`, each equal bit for bit;
+6. cli: the product's own path, `python -m sd_lora_trainer_tpu_torch.main
+   cfg.json` in a subprocess, on a full-width SDXL checkpoint file written
+   here in fp16 (random weights from a seed, `synthesize_checkpoint`) and a
+   folder of 8 synthetic 1024x1024 PNGs with captions, under the config of
+   train_configs/training_args_style_sdxl.json cut to 10 steps and 2
+   validation renders at 1024px (checkpointing_steps=5 cannot fire: the
+   trainer skips checkpoints in the last 25 steps, so only the final save
+   checkpoints and renders; no captioner, no GPT cleanup; everything
+   else the product's defaults: bucketing, the "auto" plan, the int8 base,
+   fused qkv, TI). Checks the artifact set, the LoRA read back bit for bit,
+   finite losses, and flash launches by the train steps and by the render;
+   prints each phase's time from the trainer's `[train-summary]` line.
+It then prints the `kernels` JSON line (launches from the cli run, by path
+in `launches_by_path`), the nvidia-smi line, and as the last line the
+result object.
 """
 
 from __future__ import annotations
@@ -643,6 +656,131 @@ def _leaves(tree):
             yield from _leaves(v)
 
 
+CLI_STEPS = 10
+CLI_IMAGES = 8
+CLI_RES = 1024
+
+
+def _cli_images(folder: str, seed: int) -> None:
+    """CLI_IMAGES CLI_RES^2 RGB PNGs (smooth colour fields plus noise, from
+    numpy's RandomState) with a caption file each."""
+    import numpy as np
+    from PIL import Image
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(folder, exist_ok=True)
+    for i in range(CLI_IMAGES):
+        coarse = rs.rand(8, 8, 3).astype(np.float32)
+        field = torch.nn.functional.interpolate(
+            torch.from_numpy(coarse).permute(2, 0, 1)[None], size=(CLI_RES, CLI_RES),
+            mode="bilinear", align_corners=False)[0].permute(1, 2, 0).numpy()
+        img = np.clip(field * 255 + rs.randn(CLI_RES, CLI_RES, 3) * 12, 0, 255).astype(np.uint8)
+        Image.fromarray(img).save(os.path.join(folder, f"{i}.png"))
+        with open(os.path.join(folder, f"{i}.txt"), "w") as f:
+            f.write(f"a painting of a landscape with hills number {i}")
+
+
+def phase_cli():
+    """The trainer's CLI end to end on a full-width SDXL checkpoint file;
+    returns its `[train-summary]` numbers. Everything it writes lives in a
+    temp dir under build/, removed after."""
+    from sd_lora_trainer_tpu_torch import checkpoint as ck
+    from sd_lora_trainer_tpu_torch.main import SUMMARY_TAG
+    from sd_lora_trainer_tpu_torch.models import clip
+    from sd_lora_trainer_tpu_torch.models.lora import kohya_state_dict
+    from sd_lora_trainer_tpu_torch.models.synthesize import synthesize_checkpoint
+    from sd_lora_trainer_tpu_torch.models.unet import SDXL_UNET_CONFIG
+    from sd_lora_trainer_tpu_torch.models.vae import SDXL_VAE_CONFIG
+    from sd_lora_trainer_tpu_torch.models.weights import load_models_from_checkpoint
+    from sd_lora_trainer_tpu_torch.utils.safetensors_io import load_safetensors
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli_", dir=os.path.join(ROOT, "build"))
+    try:
+        ckpt = os.path.join(tmp, "sdxl_fp16.safetensors")
+        t0 = time.perf_counter()
+        synthesize_checkpoint(ckpt, "sdxl", SDXL_UNET_CONFIG, SDXL_VAE_CONFIG, clip.CLIP_L_CONFIG,
+                              clip.CLIP_BIG_G_CONFIG, seed=0, dtype=torch.float16, device="cuda")
+        torch.cuda.empty_cache()
+        gb = os.path.getsize(ckpt) / 1e9
+        log(f"[cli] wrote a full-width SDXL checkpoint (fp16, {gb:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f} s; disk free {shutil.disk_usage(tmp).free / 1e9:.0f} GB")
+        data = os.path.join(tmp, "data")
+        _cli_images(data, seed=0)
+        with open(TRAIN_CONFIG) as f:
+            cfg = json.load(f)
+        name = cfg["name"]
+        cfg.update(lora_training_urls=data, ckpt_path=ckpt, output_dir=os.path.join(tmp, "runs"),
+                   caption_model="no_caption", skip_gpt_cleanup=True, max_train_steps=CLI_STEPS,
+                   checkpointing_steps=5, n_sample_imgs=2, validation_img_size=CLI_RES)
+        cfg_path = os.path.join(tmp, "cfg.json")
+        with open(cfg_path, "w") as f:
+            json.dump(cfg, f)
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-m", "sd_lora_trainer_tpu_torch.main", cfg_path],
+                              cwd=tmp, capture_output=True, text=True, timeout=700,
+                              env={**os.environ, "PYTHONPATH": ROOT})
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            log(proc.stdout[-4000:])
+            log(proc.stderr[-4000:])
+        check(proc.returncode == 0, f"the CLI trainer exited {proc.returncode}")
+        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(SUMMARY_TAG)]
+        check(len(lines) == 1, "the trainer printed no summary line")
+        summ = json.loads(lines[0][len(SUMMARY_TAG):])
+
+        runs = os.listdir(os.path.join(tmp, "runs"))
+        save_dir = os.path.join(tmp, "runs", runs[0], "checkpoints", f"checkpoint-{CLI_STEPS}")
+        files = sorted(os.listdir(save_dir))
+        for want in (f"{name}_sdxl_lora.safetensors", f"{name}_sdxl_embeddings.safetensors",
+                     "special_params.json", "training_args.json"):
+            check(want in files, f"the CLI wrote {files}, without {want}")
+        check(any(f.startswith("validation_grid") and f.endswith((".jpg", ".png")) for f in files),
+              f"no validation grid among {files}")
+        lora_sd = load_safetensors(os.path.join(save_dir, f"{name}_sdxl_lora.safetensors"))
+        n_unet = sum(k.startswith("lora_unet_") for k in lora_sd)
+        check(n_unet == 1731, f"the LoRA file has {n_unet} UNet keys, expected 1731")
+        emb = load_safetensors(os.path.join(save_dir, f"{name}_sdxl_embeddings.safetensors"))
+        shapes = {k: list(v.shape) for k, v in emb.items()}
+        check(shapes == {"clip_l": [3, 768], "clip_g": [3, 1280]}, f"embeddings {shapes}")
+        # the base trees on the meta device give the module paths to read back with
+        meta = load_models_from_checkpoint(ckpt, dtype=torch.float16, device="meta")
+        back = ck.load_checkpoint(save_dir, meta.unet, [meta.text_encoder, meta.text_encoder_2],
+                                  device="cpu")
+        again = kohya_state_dict(back["unet_lora"], back["te_loras"])
+        same = again.keys() == lora_sd.keys() and all(torch.equal(again[k], lora_sd[k])
+                                                      for k in lora_sd)
+        check(same, "the LoRA read back through load_checkpoint differs from the file")
+        losses = summ["tot_loss"]
+        check(len(losses) == CLI_STEPS and all(math.isfinite(x) for x in losses),
+              f"losses {losses}")
+        train_l, render_l = summ["launches"]["train"], summ["launches"]["render"]
+        n_img = sum(summ["rendered_images"])
+        render_fwd = sum(r["flash_fwd"] for r in render_l)
+        check(train_l["flash_fwd"] > 0 and train_l["flash_bwd"] > 0,
+              f"the train steps launched {train_l}")
+        check(render_fwd > 0, f"the render launched {render_l}")
+        enc = summ["vae_encode"]
+        log(f"[cli] trainer rc 0 in {wall:.1f} s; artifacts {files}; {n_unet} UNet LoRA keys, "
+            f"embeddings {shapes}, read back equal")
+        log(f"[cli] load {summ['load_s']:.1f} s")
+        log(f"[cli] preprocess {summ['preprocess_s']:.1f} s")
+        log(f"[cli] latent cache {summ['latent_cache_s']:.1f} s ({enc['images']} images, "
+            f"{enc['images'] / summ['latent_cache_s']:.2f} images/s; VAE encode {enc['s']:.2f} s, "
+            f"peak {enc['peak_gib']:.2f} GiB with {enc['resident_gib']:.2f} GiB resident)")
+        log(f"[cli] loop {summ['s_per_step']:.3f} s/step over {summ['steps']} steps "
+            f"(bs 4, 1024px; host batch prep {summ['batch_prep_s'] / summ['steps']:.3f} s/step); "
+            f"losses {[round(x, 5) for x in losses]}; launches {train_l}")
+        log(f"[cli] checkpoint {sum(summ['checkpoint_s']):.2f} s")
+        log(f"[cli] render {sum(summ['render_s']) / n_img:.2f} s per image ({n_img} images at "
+            f"{CLI_RES}px, 25 steps), flash_fwd launches per image {render_fwd / n_img:.0f}")
+        total = {k: train_l[k] + sum(r[k] for r in render_l) for k in train_l}
+        return {"summary": summ, "launches": total, "train_launches": train_l,
+                "render_launches": {k: sum(r[k] for r in render_l) for k in train_l}}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--plan", choices=("auto", "full", "off"), default=None,
@@ -653,7 +791,12 @@ def main() -> int:
     phase_reference()
     run, results = phase_train([args.plan] if args.plan else ["full", "auto"])
     phase_export(run)
-    launches = list(results.values())[-1]["launches"]
+    del run
+    torch.cuda.empty_cache()
+    cli = phase_cli()
+    launches = cli["launches"]
+    by_path = {f"train_{p}": r["launches"] for p, r in results.items()}
+    by_path.update(cli_train=cli["train_launches"], cli_render=cli["render_launches"])
     entries = []
     for name, s in summary.items():
         bound, by = _bound_ms(s["flops"], s["bytes"])
@@ -662,6 +805,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": f"sd_lora_trainer_tpu_torch/csrc/{name}.cu",
             "replaces": REPLACES[name], "launches": launches[name],
+            "launches_by_path": {p: counts[name] for p, counts in by_path.items()},
             "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": bound, "bound_by": by,
             "library_ms": s["library_ms"], "library_call": LIBRARY_CALLS[name],

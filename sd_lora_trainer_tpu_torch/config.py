@@ -22,6 +22,39 @@ import time
 from datetime import datetime
 from typing import List, Optional, Union
 
+
+class ModelPaths:
+    """Mutable registry of the directories auxiliary weights are staged in
+    (the CLIP tokenizer files, captioners, CLIPSeg, Swin2SR) and base
+    checkpoints are kept in; the JAX package's registry."""
+
+    def __init__(self):
+        self.paths = {"BLIP": "./cache", "FLORENCE": "./cache", "CLIP": "./cache",
+                      "SR": "./cache", "SD": "./models"}
+
+    def get_path(self, key):
+        return self.paths.get(key, None)
+
+    def set_path(self, key, path):
+        if key in self.paths:
+            self.paths[key] = path
+
+
+model_paths = ModelPaths()
+
+# the default base checkpoints' download URLs (the JAX package's)
+SDXL_URL = "https://edenartlab-lfs.s3.amazonaws.com/models/checkpoints/Eden_SDXL.safetensors"
+SD15_URL = "https://huggingface.co/KamCastle/jugg/resolve/main/juggernaut_reborn.safetensors"
+
+
+def pretrained_models() -> dict:
+    return {
+        version: {"path": os.path.join(model_paths.get_path("SD"), os.path.basename(url)),
+                  "url": url, "version": version}
+        for version, url in (("sdxl", SDXL_URL), ("sd15", SD15_URL))
+    }
+
+
 _CHOICES = {
     "concept_mode": ("face", "style", "object"),
     "caption_model": ("gpt4-v", "blip", "florence", "no_caption"),
@@ -150,7 +183,7 @@ class TrainingConfig:
 
         if not self.ckpt_path:
             if self.sd_model_version is not None:
-                self.pretrained_model = {"path": None, "url": None, "version": self.sd_model_version}
+                self.pretrained_model = pretrained_models()[self.sd_model_version]
         else:
             self.pretrained_model = {
                 "path": self.ckpt_path, "url": None, "version": self.sd_model_version,
@@ -204,6 +237,12 @@ class TrainingConfig:
         if q in ("int8", "int8+te") and (not self.is_lora or self.sharding_mode == "tp"):
             return "none"
         return q
+
+    def save_as_json(self, file_path: str) -> None:
+        """Every field, as the JAX package's `model_dump` writes them."""
+        with open(file_path, "w") as f:
+            json.dump({k: v for k, v in dataclasses.asdict(self).items()
+                       if not k.startswith("_")}, f, indent=4)
 
     @classmethod
     def from_dict(cls, data: dict) -> "TrainingConfig":

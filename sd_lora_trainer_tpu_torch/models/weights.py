@@ -4,7 +4,7 @@ Counterpart of sd_lora_trainer_tpu/models/weights.py. A single-file
 checkpoint is an LDM-layout safetensors with the families
 
     model.diffusion_model.*                     UNet   (CompVis naming)
-    first_stage_model.*                         VAE    (a later slice)
+    first_stage_model.*                         VAE    (CompVis naming)
     cond_stage_model.transformer.text_model.*   CLIP-L (SD1.5, HF naming)
     conditioner.embedders.0.transformer.*       CLIP-L (SDXL, HF naming)
     conditioner.embedders.1.model.*             CLIP-G (SDXL, OpenCLIP naming)
@@ -14,17 +14,26 @@ module paths with the checkpoint's own torch layouts (linear (out, in), conv
 OIHW), so no tensor is transposed. Every tensor of a family must be consumed
 exactly once; leftovers raise. `export_ldm_unet` is the inverse of
 `convert_ldm_unet` (the full-finetune export).
+
+The file is read by the port's utils/safetensors_io.py (no `safetensors`
+package), memory-mapped: each tensor is read from disk when it is converted
+and moved to its device. Tiny synthetic checkpoints (models/synthesize.py,
+of either package) carry their model configs in the file's metadata under
+the key "sd_lora_trainer_tpu"; the loader reads them as the JAX package's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import json
 from typing import Dict, Optional
 
 import torch
 
 from sd_lora_trainer_tpu_torch.models.clip import CLIP_BIG_G_CONFIG, CLIP_L_CONFIG, CLIPTextConfig
 from sd_lora_trainer_tpu_torch.models.unet import SD15_UNET_CONFIG, SDXL_UNET_CONFIG, UNetConfig
+from sd_lora_trainer_tpu_torch.models.vae import SD15_VAE_CONFIG, SDXL_VAE_CONFIG, VAEConfig
+from sd_lora_trainer_tpu_torch.utils.safetensors_io import load_safetensors, read_safetensors_metadata
 
 UNET_PREFIX = "model.diffusion_model."
 VAE_PREFIX = "first_stage_model."
@@ -67,6 +76,11 @@ class _KeyConsumer:
 
     def conv(self, key: str) -> dict:
         return {"weight": self._get(f"{key}.weight"), "bias": self._get(f"{key}.bias")}
+
+    def conv_as_linear(self, key: str) -> dict:
+        """A 1x1 conv [O, I, 1, 1] as a linear (O, I) (the VAE attention)."""
+        w = self._get(f"{key}.weight")
+        return {"weight": w[:, :, 0, 0] if w.ndim == 4 else w, "bias": self._get(f"{key}.bias")}
 
     norm = conv  # {"weight", "bias"}
 
@@ -339,16 +353,109 @@ def convert_openclip(sd: dict, cfg: CLIPTextConfig, dtype=torch.bfloat16, device
     return params
 
 
+def _vae_resnet(c: _KeyConsumer, base: str) -> dict:
+    p = {
+        "norm1": c.norm(f"{base}.norm1"),
+        "conv1": c.conv(f"{base}.conv1"),
+        "norm2": c.norm(f"{base}.norm2"),
+        "conv2": c.conv(f"{base}.conv2"),
+    }
+    if c.has(f"{base}.nin_shortcut.weight"):
+        p["conv_shortcut"] = c.conv(f"{base}.nin_shortcut")
+    return p
+
+
+def _vae_attn(c: _KeyConsumer, base: str) -> dict:
+    return {
+        "group_norm": c.norm(f"{base}.norm"),
+        "to_q": c.conv_as_linear(f"{base}.q"),
+        "to_k": c.conv_as_linear(f"{base}.k"),
+        "to_v": c.conv_as_linear(f"{base}.v"),
+        "to_out": c.conv_as_linear(f"{base}.proj_out"),
+    }
+
+
+def convert_ldm_vae(sd: dict, cfg: VAEConfig, dtype=torch.bfloat16, device=None) -> dict:
+    """CompVis VAE keys -> the tree of models/vae.py. The decoder's `up.{i}`
+    is indexed by resolution level, so `up.{n-1}` runs first."""
+    c = _KeyConsumer(sd, "vae", dtype, device)
+    n = len(cfg.block_out_channels)
+    down_blocks = []
+    for i in range(n):
+        block = {"resnets": [_vae_resnet(c, f"encoder.down.{i}.block.{j}")
+                             for j in range(cfg.layers_per_block)]}
+        if i < n - 1:
+            block["downsamplers"] = [{"conv": c.conv(f"encoder.down.{i}.downsample.conv")}]
+        down_blocks.append(block)
+    encoder = {
+        "conv_in": c.conv("encoder.conv_in"),
+        "down_blocks": down_blocks,
+        "mid_block": {
+            "resnets": [_vae_resnet(c, "encoder.mid.block_1"), _vae_resnet(c, "encoder.mid.block_2")],
+            "attentions": [_vae_attn(c, "encoder.mid.attn_1")],
+        },
+        "conv_norm_out": c.norm("encoder.norm_out"),
+        "conv_out": c.conv("encoder.conv_out"),
+    }
+    up_blocks = []
+    for i in range(n):
+        ldm_i = n - 1 - i
+        block = {"resnets": [_vae_resnet(c, f"decoder.up.{ldm_i}.block.{j}")
+                             for j in range(cfg.layers_per_block + 1)]}
+        if ldm_i > 0:
+            block["upsamplers"] = [{"conv": c.conv(f"decoder.up.{ldm_i}.upsample.conv")}]
+        up_blocks.append(block)
+    decoder = {
+        "conv_in": c.conv("decoder.conv_in"),
+        "mid_block": {
+            "resnets": [_vae_resnet(c, "decoder.mid.block_1"), _vae_resnet(c, "decoder.mid.block_2")],
+            "attentions": [_vae_attn(c, "decoder.mid.attn_1")],
+        },
+        "up_blocks": up_blocks,
+        "conv_norm_out": c.norm("decoder.norm_out"),
+        "conv_out": c.conv("decoder.conv_out"),
+    }
+    params = {"encoder": encoder, "decoder": decoder, "quant_conv": c.conv("quant_conv"),
+              "post_quant_conv": c.conv("post_quant_conv")}
+    c.finish()
+    return params
+
+
 @dataclasses.dataclass
 class LoadedModels:
     version: str
     unet: dict
     unet_config: UNetConfig
+    vae: dict
+    vae_config: VAEConfig
     text_encoder: dict
     text_encoder_config: CLIPTextConfig
     text_encoder_2: Optional[dict]
     text_encoder_2_config: Optional[CLIPTextConfig]
-    vae_state_dict: Dict[str, torch.Tensor]  # first_stage_model.* for the VAE slice
+
+
+# the metadata key of synthesized checkpoints (shared with the JAX package)
+EMBEDDED_CONFIG_KEY = "sd_lora_trainer_tpu"
+
+
+def read_embedded_configs(path: str) -> Optional[dict]:
+    """The model configs a synthesized checkpoint embeds in its metadata
+    ({"version", "unet", "vae", "clip_l", "clip_g"}), or None for a
+    standard SD checkpoint."""
+    raw = read_safetensors_metadata(path).get(EMBEDDED_CONFIG_KEY)
+    if not raw:
+        return None
+    data = json.loads(raw)
+    for key in ("unet", "vae", "clip_l", "clip_g"):
+        if data.get(key):
+            data[key] = {k: tuple(v) if isinstance(v, list) else v for k, v in data[key].items()}
+    return {
+        "version": data["version"],
+        "unet": UNetConfig(**data["unet"]),
+        "vae": VAEConfig(**data["vae"]),
+        "clip_l": CLIPTextConfig(**data["clip_l"]),
+        "clip_g": CLIPTextConfig(**data["clip_g"]) if data.get("clip_g") else None,
+    }
 
 
 def load_models_from_checkpoint(
@@ -356,25 +463,32 @@ def load_models_from_checkpoint(
     dtype=torch.bfloat16,
     device="cuda",
     unet_config: Optional[UNetConfig] = None,
+    vae_config: Optional[VAEConfig] = None,
     clip_l_config: Optional[CLIPTextConfig] = None,
     clip_g_config: Optional[CLIPTextConfig] = None,
 ) -> LoadedModels:
-    """UNet + text encoders of a single-file checkpoint (safetensors.torch).
+    """UNet, VAE and text encoders of a single-file checkpoint, on `device`.
 
-    Config overrides serve tiny synthetic checkpoints; the VAE family is split
-    off by prefix and returned unconverted for the VAE slice."""
-    from safetensors.torch import load_file
-
-    sd = load_file(path)
+    Configs: the overrides when given, else the ones the file embeds, else
+    the standard SD1.5/SDXL topologies."""
+    embedded = read_embedded_configs(path)
+    if embedded is not None:
+        unet_config = unet_config or embedded["unet"]
+        vae_config = vae_config or embedded["vae"]
+        clip_l_config = clip_l_config or embedded["clip_l"]
+        clip_g_config = clip_g_config or embedded["clip_g"]
+    sd = load_safetensors(path)
     version = detect_version(sd.keys())
-    vae_sd = _take_prefix(sd, VAE_PREFIX)
-    unet_cfg = unet_config or (SDXL_UNET_CONFIG if version == "sdxl" else SD15_UNET_CONFIG)
+    xl = version == "sdxl"
+    unet_cfg = unet_config or (SDXL_UNET_CONFIG if xl else SD15_UNET_CONFIG)
+    vae_cfg = vae_config or (SDXL_VAE_CONFIG if xl else SD15_VAE_CONFIG)
     clip_l_cfg = clip_l_config or CLIP_L_CONFIG
     unet = convert_ldm_unet(_take_prefix(sd, UNET_PREFIX), unet_cfg, dtype, device)
-    if version == "sdxl":
+    vae = convert_ldm_vae(_take_prefix(sd, VAE_PREFIX), vae_cfg, dtype, device)
+    te1 = convert_hf_clip(_take_prefix(sd, CLIP_SDXL_L_PREFIX if xl else CLIP_SD15_PREFIX),
+                          clip_l_cfg, dtype, device)
+    te2, clip_g_cfg = None, None
+    if xl:
         clip_g_cfg = clip_g_config or CLIP_BIG_G_CONFIG
-        te1 = convert_hf_clip(_take_prefix(sd, CLIP_SDXL_L_PREFIX), clip_l_cfg, dtype, device)
         te2 = convert_openclip(_take_prefix(sd, CLIP_SDXL_G_PREFIX), clip_g_cfg, dtype, device)
-        return LoadedModels(version, unet, unet_cfg, te1, clip_l_cfg, te2, clip_g_cfg, vae_sd)
-    te1 = convert_hf_clip(_take_prefix(sd, CLIP_SD15_PREFIX), clip_l_cfg, dtype, device)
-    return LoadedModels(version, unet, unet_cfg, te1, clip_l_cfg, None, None, vae_sd)
+    return LoadedModels(version, unet, unet_cfg, vae, vae_cfg, te1, clip_l_cfg, te2, clip_g_cfg)

@@ -1,8 +1,10 @@
 """The port and chip_smoke.py import neither jax nor the JAX package.
 
 Checked twice: in a fresh interpreter that imports every module of the port
-and chip_smoke.py (sys.modules must then hold no jax and no
-sd_lora_trainer_tpu), and by scanning their sources' import statements.
+and chip_smoke.py (sys.modules must then hold no jax, no
+sd_lora_trainer_tpu and no safetensors), and by scanning their sources'
+import statements. The port builds only sources of its own csrc/ (the
+flash kernels, the C++ tokenizer), never the root csrc/ of the JAX package.
 """
 
 import ast
@@ -14,7 +16,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 PORT = ROOT / "sd_lora_trainer_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "sd_lora_trainer_tpu")
+FORBIDDEN = ("jax", "jaxlib", "sd_lora_trainer_tpu", "safetensors", "pandas")
 
 
 def _port_modules():
@@ -30,7 +32,11 @@ def _port_modules():
 
 def test_port_modules_exist():
     mods = _port_modules()
-    for name in ("ops.flash_attention", "models.unet", "training.step", "interop", "config"):
+    for name in ("ops.flash_attention", "models.unet", "training.step", "interop", "config",
+                 "models.vae", "models.synthesize", "models.tokenizer", "models.tokenizer_native",
+                 "data.preprocess", "data.dataset", "data.bucketing", "data.io",
+                 "data.captioners", "data.face_masks", "data.super_resolution",
+                 "inference", "main", "utils.utils", "utils.val_prompts", "utils.plots"):
         assert f"sd_lora_trainer_tpu_torch.{name}" in mods
 
 
@@ -63,3 +69,16 @@ def test_sources_import_no_jax(path):
             continue
         for name in names:
             assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_native_sources_are_the_ports_own():
+    from sd_lora_trainer_tpu_torch.models import tokenizer_native
+    from sd_lora_trainer_tpu_torch.ops import kernels
+
+    csrc = PORT / "csrc"
+    assert tokenizer_native.SRC.resolve().parent == csrc and tokenizer_native.SRC.exists()
+    assert kernels.CSRC.resolve() == csrc
+    assert all((csrc / f"{name}.cu").exists() for name in kernels.KERNEL_SOURCES)
+    for path in PORT.rglob("*.py"):
+        text = path.read_text()
+        assert '"..", "..", "csrc"' not in text and "parents[2] / \"csrc\"" not in text, path

@@ -2,7 +2,7 @@
 
 1. Tiny SD1.5 and SDXL single files written by the JAX package's
    `synthesize_checkpoint` load through both loaders; every tensor of the
-   port's UNet and text encoders equals the JAX one after the layout
+   port's UNet, VAE and text encoders equals the JAX one after the layout
    transpose (exactly: float32 both sides, transposes are exact).
 2. The port's converters run on meta tensors over the real checkpoints' key
    inventories (tests/golden/ldm_{sd15,sdxl}_inventory.json, as
@@ -72,8 +72,7 @@ def test_synthesized_checkpoint_converts_like_jax(version, tmp_path):
     _assert_same_tensors(tm.text_encoder, jm.text_encoder)
     if version == "sdxl":
         _assert_same_tensors(tm.text_encoder_2, jm.text_encoder_2)
-    assert tm.vae_state_dict and all(k.startswith(("encoder.", "decoder.", "quant", "post"))
-                                     for k in tm.vae_state_dict)
+    _assert_same_tensors(tm.vae, jm.vae)
 
 
 def _meta_inventory(version):
