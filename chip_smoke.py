@@ -35,7 +35,21 @@ fatal on failure (the script exits non-zero and prints no result):
    kohya LoRA, the embeddings, special_params.json) and back through
    `load_checkpoint`, and the train state through `save_train_state` and
    `restore_train_state`, each equal bit for bit;
-6. cli: the product's own path, `python -m sd_lora_trainer_tpu_torch.main
+6. optim: the remaining training options at full SDXL width (random weights
+   from a seed, bf16): Prodigy's updates and d and quantize_blockwise's
+   indices on the card against the CPU (small seeded inputs); the TI warmup
+   with both full-width encoders, 20 steps, its loss falling; the full
+   finetune of train_configs/full_finetuning_example.json at 1024px bs=4
+   (sharding_mode "fsdp" on one card, the plan "auto" resolves to there, a
+   bf16 base) under AdamW, then AdamW8bit, a few steps each, with s/step,
+   peak memory, the optimizer state's bytes and the update's own time
+   (CUDA events around the optimizer's step); the 8-bit state must be uint8
+   with one fp32 scale per 2048-element block and peak below AdamW's; then
+   LoRA+TI on the default plan (fused qkv, int8 base) under Prodigy (UNet
+   and TI, d of each group printed per step, above d0 once the first update
+   has moved the tensors) and under AdamW, each saved after step 2, run to
+   step 4, restored and rerun through steps 3-4 within RESUME_TOL;
+7. cli: the product's own path, `python -m sd_lora_trainer_tpu_torch.main
    cfg.json` in a subprocess, on a full-width SDXL checkpoint file written
    here in fp16 (random weights from a seed, `synthesize_checkpoint`) and a
    folder of 8 synthetic 1024x1024 PNGs with captions, under the config of
@@ -48,8 +62,8 @@ fatal on failure (the script exits non-zero and prints no result):
    finite losses, and flash launches by the train steps and by the render;
    prints each phase's time from the trainer's `[train-summary]` line.
 It then prints the `kernels` JSON line (launches from the cli run, by path
-in `launches_by_path`), the nvidia-smi line, and as the last line the
-result object.
+in `launches_by_path`: the train plans, the optim phase's paths and the cli
+run), the nvidia-smi line, and as the last line the result object.
 """
 
 from __future__ import annotations
@@ -57,6 +71,7 @@ from __future__ import annotations
 import argparse
 import copy
 import dataclasses
+import gc
 import json
 import math
 import os
@@ -370,9 +385,10 @@ def _moved(run, device):
 
 
 def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: int, fuse: bool,
-               full: bool = False):
-    """Frozen models, trainable tree, optimizer and batch of one SDXL run;
-    `batch=None` keeps the train config's batch size."""
+               full: bool = False, config_path: str = TRAIN_CONFIG):
+    """Frozen models, trainable tree, optimizer and batch of one SDXL run of
+    the config at `config_path` (a LoRA, or a full finetune whose trainable
+    UNet is a copy of the base); `batch=None` keeps the config's batch size."""
     from sd_lora_trainer_tpu_torch.config import TrainingConfig
     from sd_lora_trainer_tpu_torch.diffusion.schedulers import DDPMSchedule
     from sd_lora_trainer_tpu_torch.models import clip
@@ -382,7 +398,9 @@ def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: 
     from sd_lora_trainer_tpu_torch.training import step as ts
     from sd_lora_trainer_tpu_torch.training.embeddings import initialize_new_tokens
 
-    config = TrainingConfig.from_json(TRAIN_CONFIG)
+    from sd_lora_trainer_tpu_torch.main import trainable_copy
+
+    config = TrainingConfig.from_json(config_path)
     batch = config.train_batch_size = batch or config.train_batch_size
     gen = torch.Generator(device=device).manual_seed(0)
     c1 = clip.CLIP_L_CONFIG if full else clip.TINY_CLIP_L_CONFIG
@@ -390,7 +408,8 @@ def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: 
     unet = init_unet_params(ucfg, gen, dtype=dtype, device=device)
     te1 = clip.init_clip_params(c1, gen, dtype=dtype, device=device)
     te2 = clip.init_clip_params(c2, gen, dtype=dtype, device=device)
-    lora = create_lora_params(unet, rank, gen, alpha_multiplier=config.lora_alpha_multiplier)
+    lora = (create_lora_params(unet, rank, gen, alpha_multiplier=config.lora_alpha_multiplier)
+            if config.is_lora else trainable_copy(unet))
     if fuse:
         unet = fuse_attention_projections(unet)
     tables = [t["text_model"]["embeddings"]["token_embedding"]["weight"] for t in (te1, te2)]
@@ -417,7 +436,9 @@ def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: 
         "caption_token_lengths": torch.full((1, batch), 8, device=device),
         "ti_token_positions": torch.tensor([1, 2, 3], device=device).repeat(1, batch, 1),
     }
-    trainable = {"unet": lora, "ti": {"te1": rows[0], "te2": rows[1]}}
+    trainable = {"unet": lora}
+    if not config.disable_ti:
+        trainable["ti"] = {"te1": rows[0], "te2": rows[1]}
     return _assemble(config, frozen, trainable, batch_d, gen)
 
 
@@ -626,14 +647,12 @@ def phase_export(run):
         template = ts.TrainState(step=0, trainable=fresh, optimizer=GroupOptimizer(config, fresh),
                                  generator=torch.Generator(state.generator.device).manual_seed(7))
         ck.restore_train_state(path, template)
-        params = [p for g_ in state.optimizer.opt.param_groups for p in g_["params"]]
-        params_r = [p for g_ in template.optimizer.opt.param_groups for p in g_["params"]]
-        opt, opt_r = state.optimizer.opt.state, template.optimizer.opt.state
+        params, params_r = state.optimizer.params(), template.optimizer.params()
+        opt, opt_r = state.optimizer.state_tensors(), template.optimizer.state_tensors()
         equal = (len(params) == len(params_r)
                  and all(torch.equal(a, b) for a, b in zip(params, params_r))
-                 and all(opt[a].keys() == opt_r[b].keys()
-                         and all(torch.equal(opt[a][k], opt_r[b][k]) for k in opt[a])
-                         for a, b in zip(params, params_r))
+                 and opt.keys() == opt_r.keys()
+                 and all(torch.equal(opt[k].cpu(), opt_r[k].cpu()) for k in opt)
                  and template.step == state.step
                  and template.optimizer.count == state.optimizer.count
                  and torch.equal(template.generator.get_state(), state.generator.get_state()))
@@ -654,6 +673,370 @@ def _leaves(tree):
     elif isinstance(tree, (list, tuple)):
         for v in tree:
             yield from _leaves(v)
+
+
+FF_CONFIG = os.path.join(ROOT, "train_configs", "full_finetuning_example.json")
+OPTIM_STEPS = 3  # per full-finetune optimizer: 1 warm-up, then timed
+# the optim phase's paths, each a run of the main path in `launches_by_path`
+OPTIM_PATHS = ("ff_adamw", "ff_adamw8bit", "prodigy", "lora_adamw")
+# resume on the card: |resumed - whole| after steps 3-4, relative L2 over the
+# steps 3-4 update. The gradients differ between two launches of the same
+# step: flash_bwd adds dq with fp32 atomics in another order each launch (up
+# to one bf16 step of the largest dq, checked in the kernels phase; <= 9.8e-4
+# measured on the H100), and so do torch's index backward of the TI rows and
+# cuDNN's weight gradients. Adam and Prodigy divide each gradient by its own
+# running size, so an element whose gradient is near zero may step the
+# other way: the first card run measured 2.5e-2 for Prodigy. The same steps
+# rerun twice from one restored state measure that spread alone, and both
+# stay under the gate; a state restored without its optimizer state or
+# its generator moved the update by 0.32-0.62 (tiny SDXL on the CPU)
+RESUME_TOL = 0.1
+# Prodigy's d stays d0 through the first update and grows as the tensors
+# travel (on tiny SDXL LoRA+TI the TI group left d0 at step 5, the UNet at 9)
+PRODIGY_STEPS = 12
+PRODIGY_CARD_TOL = 1e-5  # card vs CPU, fp32: the sums over tensors in another order
+
+
+def _state_bytes(optimizer) -> int:
+    return sum(t.numel() * t.element_size() for t in optimizer.state_tensors().values())
+
+
+def _timed_updates(optimizer) -> list:
+    """Wrap `optimizer.step` in CUDA events; returns the list of (start,
+    end) event pairs it fills, one per update."""
+    events, step = [], optimizer.step
+
+    def timed():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        step()
+        end.record()
+        events.append((start, end))
+
+    optimizer.step = timed
+    return events
+
+
+def _optim_card_vs_cpu() -> dict:
+    """Prodigy's updates and d over 10 steps of a seeded quadratic, and
+    quantize_blockwise's indices and scales, on the card against the CPU."""
+    from sd_lora_trainer_tpu_torch.training.prodigy import Prodigy
+    from sd_lora_trainer_tpu_torch.training.quantized_adam import quantize_blockwise
+
+    g = torch.Generator().manual_seed(0)
+    shapes = [(320, 64), (4096,), (16, 3, 3, 3), (7,)]
+    init = [torch.randn(s, generator=g) for s in shapes]
+    target = [torch.randn(s, generator=g) * 3 for s in shapes]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        params = [x.to(dev, copy=True).requires_grad_() for x in init]
+        opt = Prodigy(params, growth_rate=1.05, weight_decay=0.004)
+        ds = []
+        for _ in range(10):
+            for p, t in zip(params, target):
+                p.grad = 2 * (p.detach() - t.to(dev))
+            opt.step()
+            ds.append(float(opt.d))
+        out[dev] = ([p.detach().cpu() for p in params], ds)
+    # each tensor's total move, against the CPU's: within PRODIGY_CARD_TOL of
+    # its largest move, beyond one float32 rounding of p + u a step (|p| ~ 1
+    # rounds at 1.2e-7, a step of d ~ 1e-6 moves it ~1e-6)
+    p_err = 0.0
+    for a, b, x in zip(out["cuda"][0], out["cpu"][0], init):
+        ulp = torch.nextafter(b.abs(), torch.tensor(math.inf)) - b.abs()
+        excess = ((a - b).abs() - 10 * ulp).clamp(min=0)
+        p_err = max(p_err, float(excess.max() / (b - x).abs().max()))
+    d_err = max(abs(a - b) / b for a, b in zip(out["cuda"][1], out["cpu"][1]))
+    check(out["cpu"][1][-1] > 1e-6, f"Prodigy's d stayed at d0 on the CPU: {out['cpu'][1]}")
+    check(p_err <= PRODIGY_CARD_TOL and d_err <= PRODIGY_CARD_TOL,
+          f"Prodigy on the card differs from the CPU: params {p_err:.2e}, d {d_err:.2e}")
+
+    x = torch.randn(5 * 2048 + 777, generator=g) * torch.logspace(-7, 0, 5 * 2048 + 777)
+    x[:2048] = 0.0  # an all-zero block: scale 1
+    same = True
+    for signed in (True, False):
+        v = x if signed else x.abs()
+        q_cpu, s_cpu = quantize_blockwise(v, signed=signed)
+        q_gpu, s_gpu = quantize_blockwise(v.cuda(), signed=signed)
+        same &= torch.equal(q_gpu.cpu(), q_cpu) and torch.equal(s_gpu.cpu(), s_cpu)
+    check(same, "quantize_blockwise on the card differs from the CPU")
+    log(f"[optim] card vs CPU: Prodigy moves max err {p_err:.2e} of the largest move beyond "
+        f"10 float32 roundings of p, d max rel err {d_err:.2e} "
+        f"(tol {PRODIGY_CARD_TOL:.0e}; d {out['cpu'][1][0]:.3e} -> {out['cpu'][1][-1]:.3e} over "
+        f"10 steps); quantize_blockwise indices and scales equal bit for bit")
+    return {"prodigy_param_err": p_err, "prodigy_d_err": d_err}
+
+
+def _optim_warmup(base) -> dict:
+    """The TI warmup at full CLIP-L + bigG width: 20 AdamW steps of the
+    three rows per encoder toward a description's encoding."""
+    from sd_lora_trainer_tpu_torch.training.embeddings import initialize_new_tokens
+    from sd_lora_trainer_tpu_torch.training.token_warmup import warmup_token_embeddings
+
+    frozen, config = base["frozen"], base["config"]
+    tables = [p["text_model"]["embeddings"]["token_embedding"]["weight"]
+              for p in (frozen.te1_params, frozen.te2_params)]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    rows, targets = initialize_new_tokens(tables, 3, gen)
+    vocab = frozen.te1_config.vocab_size
+
+    def ids(tokens):
+        t = torch.full((1, 77), frozen.te1_config.eos_token_id, dtype=torch.long)
+        t[0, 0] = vocab - 2
+        t[0, 1:1 + len(tokens)] = torch.tensor(tokens)
+        return t.cuda()
+
+    token = ids([vocab, vocab + 1, vocab + 2])  # the rows appended to the tables
+    target = ids([320, 1125, 539, 4009, 530, 320, 3638])  # a description's ids
+    args = ({"te1": rows[0], "te2": rows[1]},
+            {"te1": frozen.te1_params, "te2": frozen.te2_params},
+            {"te1": frozen.te1_config, "te2": frozen.te2_config}, "sdxl",
+            {"te1": token, "te2": token}, {"te1": target, "te2": target},
+            {"te1": targets["te1"], "te2": targets["te2"]})
+    kw = dict(ti_lr=config.ti_lr, ti_weight_decay=config.ti_weight_decay,
+              tok_cov_reg_w=config.tok_cov_reg_w)
+    _, first = warmup_token_embeddings(*args, steps=1, **kw)  # the loss at the initial rows
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    warmed, last = warmup_token_embeddings(*args, steps=20, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    def total(h):  # the warmup's loss, from its terms
+        return (h["concept_description_loss"][0] + 0.5 * h["token_std_loss"][0]
+                + kw["tok_cov_reg_w"] * h.get("covariance_tok_reg_loss", [0.0])[0])
+
+    l0, l1 = total(first), total(last)
+    moved = max(float((warmed[w].detach() - r.detach()).abs().max())
+                for w, r in zip(("te1", "te2"), rows))
+    log(f"[optim] TI warmup, CLIP-L + bigG at full width: 20 steps in {secs:.2f} s "
+        f"({secs / 20 * 1e3:.1f} ms/step); loss {l0:.6f} (step 1) -> {l1:.6f} (step 20), "
+        f"description term {first['concept_description_loss'][0]:.6f} -> "
+        f"{last['concept_description_loss'][0]:.6f}; rows moved up to {moved:.2e}")
+    check(math.isfinite(l0) and math.isfinite(l1) and l1 < l0,
+          f"the warmup loss did not fall: {l0} -> {l1}")
+    return {"s": secs, "first_loss": l0, "last_loss": l1}
+
+
+def _optim_full_finetune(base, optimizer_type: str) -> dict:
+    """OPTIM_STEPS full-finetune steps under `optimizer_type`; a fresh
+    trainable copy of the base each time."""
+    from sd_lora_trainer_tpu_torch.main import trainable_copy
+    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.training import step as ts
+    from sd_lora_trainer_tpu_torch.training.quantized_adam import BLOCK
+
+    config = dataclasses.replace(base["config"], unet_optimizer_type=optimizer_type)
+    frozen = base["frozen"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    run = _assemble(config, frozen, {"unet": trainable_copy(frozen.unet_params)},
+                    base["batch"], base["generator"])
+    state, bs = run["state"], config.train_batch_size
+    updates = _timed_updates(state.optimizer)
+    train_step = ts.make_train_step(run["sc"])
+    fa.reset_launch_counts()  # this path's run starts here
+    secs, losses = [], []
+    for i in range(OPTIM_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = train_step(state, run["batch"], frozen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        vals = {k: float(v) for k, v in metrics.items()}
+        losses.append(vals["tot_loss"])
+        check(all(math.isfinite(x) for x in vals.values()),
+              f"full finetune {optimizer_type} step {i}: non-finite metric {vals}")
+    launches = dict(fa.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    update_ms = [a.elapsed_time(b) for a, b in updates]
+    n_params = sum(p.numel() for p in state.optimizer.params())
+    state_b = _state_bytes(state.optimizer)
+    opt = state.optimizer.groups["unet"]
+    if optimizer_type == "AdamW8bit":
+        for i, p in enumerate(opt.params):
+            m = opt.moments(i)
+            nb = -(-p.numel() // BLOCK)
+            check(all(m[k].dtype == torch.uint8 and tuple(m[k].shape) == (nb, BLOCK)
+                      for k in ("mu_q", "nu_q"))
+                  and all(m[k].dtype == torch.float32 and tuple(m[k].shape) == (nb,)
+                          for k in ("mu_scale", "nu_scale")),
+                  f"AdamW8bit tensor {i}: moments {[(k, v.dtype, tuple(v.shape)) for k, v in m.items()]}")
+        layout = f"{len(opt.buckets)} flat buffers"
+    else:
+        layout = ", ".join(sorted({str(v.dtype) for v in opt.state_tensors().values()
+                                   if v.ndim > 0}))
+    mean = sum(secs[1:]) / len(secs[1:])
+    per_step = {k: v / OPTIM_STEPS for k, v in launches.items()}
+    log(f"[optim] full finetune {optimizer_type}: SDXL 1024px bs={bs}, plan {run['sc'].remat!r}, "
+        f"{n_params / 1e9:.3f}B trainable ({len(opt.params)} tensors), steps "
+        f"{[round(x, 3) for x in secs]} s ({mean:.3f} s/step timed), peak {peak:.2f} GiB, "
+        f"optimizer state {state_b / 1e9:.3f} GB ({layout}), update "
+        f"{[round(x, 1) for x in update_ms]} ms, flash launches a step {per_step}, "
+        f"losses {[round(x, 5) for x in losses]}")
+    check(all(v > 0 for v in launches.values()), f"full finetune {optimizer_type}: {launches}")
+    result = {"s_per_step": mean, "steps_s": secs, "peak_gib": peak, "state_bytes": state_b,
+              "update_ms": update_ms, "launches": launches, "losses": losses}
+    del run, state, opt, train_step
+    gc.collect()  # the run dict and the timed step hold reference cycles
+    torch.cuda.empty_cache()
+    return result
+
+
+def _optim_resume(config, frozen, trainable, batch, gen, label: str) -> dict:
+    """Steps 1-4 of a LoRA+TI run, the train state saved after step 2; then
+    a template restored from it reruns steps 3-4. Returns the numbers and
+    the first run's flash launches."""
+    from sd_lora_trainer_tpu_torch import checkpoint as ck
+    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.training import step as ts
+    from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer
+    from sd_lora_trainer_tpu_torch.training.prodigy import Prodigy
+
+    run = _assemble(config, frozen, trainable, batch, gen)
+    state, bs = run["state"], config.train_batch_size
+    train_step = ts.make_train_step(run["sc"])
+    prodigy = {n: o for n, o in state.optimizer.groups.items() if isinstance(o, Prodigy)}
+    d0 = {n: float(o.d0) for n, o in prodigy.items()}
+    tmp = tempfile.mkdtemp(prefix="resume_", dir=os.path.join(ROOT, "build"))
+    try:
+        path = os.path.join(tmp, "train_state.safetensors")
+        fa.reset_launch_counts()  # this path's run starts here
+        secs, losses, ds = [], [], []
+        for i in range(4):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            metrics = train_step(state, run["batch"], frozen)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t)
+            losses.append(float(metrics["tot_loss"]))
+            ds.append({n: float(o.d) for n, o in prodigy.items()})
+            check(all(math.isfinite(float(v)) for v in metrics.values()),
+                  f"{label} step {i}: non-finite metric")
+            if i == 1:
+                ck.save_train_state(path, state)
+                at_2 = [p.detach().clone() for p in state.optimizer.params()]
+        launches = dict(fa.LAUNCHES)
+        whole = [p.detach().clone() for p in state.optimizer.params()]
+
+        def rerun():
+            """A zeroed copy of the trainables, restored from the step-2 file
+            (bit for bit), through steps 3-4."""
+            fresh = copy.deepcopy(state.trainable)
+            with torch.no_grad():
+                for t in _leaves(fresh):
+                    t.zero_()
+            template = ts.TrainState(step=0, trainable=fresh,
+                                     optimizer=GroupOptimizer(config, fresh),
+                                     generator=torch.Generator("cuda").manual_seed(11))
+            ck.restore_train_state(path, template)
+            check(template.step == 2 and all(torch.equal(a.detach(), b) for a, b in
+                                             zip(template.optimizer.params(), at_2)),
+                  f"{label}: the restored train state differs from the step-2 state")
+            for _ in range(2):
+                train_step(template, run["batch"], frozen)
+            torch.cuda.synchronize()
+            return [p.detach().clone() for p in template.optimizer.params()]
+
+        def rel(x, y):  # |x - y| over the steps 3-4 update of y, L2 over all tensors
+            num = sum(float(((a - b) ** 2).sum()) for a, b in zip(x, y))
+            return math.sqrt(num / sum(float(((b - a) ** 2).sum()) for b, a in zip(y, at_2)))
+
+        resumed, again = rerun(), rerun()
+        rel_resume, rel_again = rel(resumed, whole), rel(again, resumed)
+        max_abs = max(float((b - w).abs().max()) for b, w in zip(resumed, whole))
+        del resumed, again
+        for _ in range(PRODIGY_STEPS - 4 if prodigy else 0):  # Prodigy's d needs more steps
+            train_step(state, run["batch"], frozen)
+            ds.append({n: float(o.d) for n, o in prodigy.items()})
+        numerators = {n: float(o.d_numerator) for n, o in prodigy.items()}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    mean = sum(secs[1:]) / len(secs[1:])
+    log(f"[optim] {label}: SDXL 1024px bs={bs}, plan {run['sc'].remat!r}, optimizers "
+        f"{state.optimizer.kinds()}, steps {[round(x, 3) for x in secs]} s ({mean:.3f} s/step "
+        f"after the first), losses {[round(x, 5) for x in losses]}, flash launches a step "
+        f"{ {k: v / 4 for k, v in launches.items()} }")
+    if prodigy:
+        log(f"[optim] {label}: d by step (1-{len(ds)}) "
+            + "; ".join(f"{n} " + " ".join(f"{d[n]:.3e}" for d in ds) for n in prodigy)
+            + f"; d_numerator at step {len(ds)} {numerators}")
+    log(f"[optim] {label} resume: restored the step-2 state bit for bit (twice); steps 3-4: "
+        f"resumed vs whole rel L2 {rel_resume:.2e}, max |diff| {max_abs:.2e}; the same steps "
+        f"rerun twice from the same restored state: rel L2 {rel_again:.2e} (gate "
+        f"{RESUME_TOL:.0e} for both)")
+    check(rel_resume <= RESUME_TOL and rel_again <= RESUME_TOL,
+          f"{label}: the resumed run differs from the whole run ({rel_resume:.2e}, rerun "
+          f"{rel_again:.2e})")
+    check(all(v > 0 for v in launches.values()), f"{label}: flash launches {launches}")
+    if prodigy:
+        # the first update leaves d at d0 (p = p0 makes its numerator 0); the
+        # estimate then grows with the distance travelled: d never shrinks,
+        # and leaves d0 in every group within PRODIGY_STEPS
+        grows = all(b[n] >= a[n] >= d0[n] for a, b in zip(ds, ds[1:]) for n in prodigy)
+        check(grows and all(ds[0][n] == d0[n] for n in prodigy),
+              f"{label}: d {ds} shrank or left d0 at the first step")
+        check(all(v > 0 for v in numerators.values()), f"{label}: d_numerator {numerators}")
+        check(all(ds[-1][n] > d0[n] for n in prodigy),
+              f"{label}: d {ds[-1]} did not grow past d0 in {len(ds)} steps")
+    return {"s_per_step": mean, "steps_s": secs, "losses": losses, "d": ds,
+            "resume_rel": rel_resume, "rerun_rel": rel_again, "resume_max_abs": max_abs,
+            "launches": launches}
+
+
+def phase_optim() -> dict:
+    """The training options of slice 6 on the card; see the module docstring."""
+    from sd_lora_trainer_tpu_torch.config import TrainingConfig
+    from sd_lora_trainer_tpu_torch.models.fuse import fuse_attention_projections
+    from sd_lora_trainer_tpu_torch.models.lora import create_lora_params
+    from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
+    from sd_lora_trainer_tpu_torch.models.unet import SDXL_UNET_CONFIG
+    from sd_lora_trainer_tpu_torch.training.embeddings import initialize_new_tokens
+
+    out = {"card_vs_cpu": _optim_card_vs_cpu()}
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = True
+    t0 = time.perf_counter()
+    base = _build_run(SDXL_UNET_CONFIG, "cuda", torch.bfloat16, batch=None, latent_hw=128,
+                      rank=16, fuse=False, full=True, config_path=FF_CONFIG)
+    base["config"].resolution = 1024
+    check(not base["config"].is_lora and base["config"].sharding_mode == "fsdp",
+          "the full-finetune config changed")
+    for key in ("state", "tensors", "compute_loss"):  # its trainable copy: each
+        del base[key]  # optimizer below gets its own
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[optim] built SDXL (UNet and both encoders, bf16) in {time.perf_counter() - t0:.1f} s")
+    out["warmup"] = _optim_warmup(base)
+    out["ff_adamw"] = _optim_full_finetune(base, "adamw")
+    out["ff_adamw8bit"] = _optim_full_finetune(base, "AdamW8bit")
+    a, b = out["ff_adamw"], out["ff_adamw8bit"]
+    log(f"[optim] full finetune: peak {a['peak_gib']:.2f} GiB (adamw) vs {b['peak_gib']:.2f} GiB "
+        f"(AdamW8bit), state {a['state_bytes'] / 1e9:.3f} vs {b['state_bytes'] / 1e9:.3f} GB")
+    check(b["peak_gib"] < a["peak_gib"], "the AdamW8bit run's peak is not below the AdamW run's")
+
+    # LoRA+TI on the default plan: the adapters and rows from the bf16 base,
+    # then the fused qkv copy and the int8 base, as the trainer does
+    frozen = base["frozen"]
+    lora_cfg = TrainingConfig.from_json(TRAIN_CONFIG)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tables = [p["text_model"]["embeddings"]["token_embedding"]["weight"]
+              for p in (frozen.te1_params, frozen.te2_params)]
+    trainables = []
+    for _ in range(2):
+        rows, _ = initialize_new_tokens(tables, lora_cfg.n_tokens, gen)
+        trainables.append({"unet": create_lora_params(frozen.unet_params, lora_cfg.lora_rank, gen,
+                                                       alpha_multiplier=lora_cfg.lora_alpha_multiplier),
+                           "ti": {"te1": rows[0], "te2": rows[1]}})
+    frozen.unet_params = fuse_attention_projections(frozen.unet_params)
+    freed = quantize_frozen(frozen, lora_cfg.resolve_quantize_base())
+    log(f"[optim] LoRA+TI base: fused qkv, int8 ({freed:.2f} GiB freed)")
+    prodigy_cfg = dataclasses.replace(lora_cfg, unet_optimizer_type="prodigy",
+                                      ti_optimizer="prodigy")
+    out["prodigy"] = _optim_resume(prodigy_cfg, frozen, trainables[0], base["batch"],
+                                   torch.Generator(device="cuda").manual_seed(4), "LoRA+TI prodigy")
+    out["lora_adamw"] = _optim_resume(lora_cfg, frozen, trainables[1], base["batch"],
+                                      torch.Generator(device="cuda").manual_seed(4), "LoRA+TI adamw")
+    return out
 
 
 CLI_STEPS = 10
@@ -792,15 +1175,22 @@ def main() -> int:
     run, results = phase_train([args.plan] if args.plan else ["full", "auto"])
     phase_export(run)
     del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    optim = phase_optim()
+    gc.collect()
     torch.cuda.empty_cache()
     cli = phase_cli()
     launches = cli["launches"]
     by_path = {f"train_{p}": r["launches"] for p, r in results.items()}
+    by_path.update({path: optim[path]["launches"] for path in OPTIM_PATHS})
     by_path.update(cli_train=cli["train_launches"], cli_render=cli["render_launches"])
     entries = []
     for name, s in summary.items():
         bound, by = _bound_ms(s["flops"], s["bytes"])
         check(launches[name] > 0, f"{name} was never launched on the main path")
+        check(all(by_path[path][name] > 0 for path in OPTIM_PATHS),
+              f"{name} was not launched on every optim path: {by_path}")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"sd_lora_trainer_tpu_torch/csrc/{name}.cu",

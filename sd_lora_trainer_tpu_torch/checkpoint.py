@@ -10,8 +10,9 @@ the JAX package's artifact set, under the same names:
 
 `load_checkpoint` reads them back. `save_train_state` and
 `restore_train_state` keep what a run needs to resume (one process): the
-trainable tensors, AdamW's moments and counts, the step and the generator's
-state, in one flat safetensors file written atomically. The files are
+trainable tensors, each group's optimizer state (AdamW, Prodigy or
+AdamW8bit), the step and the generator's state, in one flat safetensors
+file written atomically. The files are
 written and read by utils/safetensors_io.py, not the `safetensors` package.
 """
 
@@ -27,7 +28,11 @@ from sd_lora_trainer_tpu_torch.config import sanitize_name
 from sd_lora_trainer_tpu_torch.models.lora import kohya_state_dict, load_kohya_state_dict
 from sd_lora_trainer_tpu_torch.models.weights import export_ldm_unet
 from sd_lora_trainer_tpu_torch.training.embeddings import TXT_ENCODER_KEYS
-from sd_lora_trainer_tpu_torch.utils.safetensors_io import load_safetensors, save_safetensors
+from sd_lora_trainer_tpu_torch.utils.safetensors_io import (
+    load_safetensors,
+    read_safetensors_metadata,
+    save_safetensors,
+)
 
 
 def save_checkpoint(
@@ -120,59 +125,57 @@ def load_checkpoint(lora_save_path: str, unet_params: dict, te_params: List[Opti
 # ---------------------------------------------------------------------------
 
 
-def _params(state) -> List[torch.Tensor]:
-    return [p for g in state.optimizer.opt.param_groups for p in g["params"]]
-
-
 def save_train_state(path: str, state) -> None:
     """Write a TrainState (training/step.py): the trainable tensors in the
-    optimizer's order, AdamW's exp_avg/exp_avg_sq/step per tensor, the
-    update count, the step and the generator's state. Atomic: a crash while
-    saving leaves the previous file."""
+    optimizer's order, each group's optimizer state (AdamW's moments and
+    step counts; Prodigy's moments, s, p0 and its 0-d d, d_max,
+    d_numerator and count; AdamW8bit's uint8 indices and fp32 block scales),
+    the optimizers' kinds (in the file's metadata), the update count, the
+    step and the generator's state. Atomic: a crash while saving leaves the
+    previous file."""
     path = os.path.abspath(path)
     tensors = {
         "step": torch.tensor(state.step, dtype=torch.int64),
         "optimizer_count": torch.tensor(state.optimizer.count, dtype=torch.int64),
         "generator": state.generator.get_state(),
     }
-    opt_state = state.optimizer.opt.state
-    for i, p in enumerate(_params(state)):
+    for i, p in enumerate(state.optimizer.params()):
         tensors[f"param_{i:05d}"] = p
-        for key, value in opt_state.get(p, {}).items():
-            tensors[f"adam_{key}_{i:05d}"] = value
+    for k, v in state.optimizer.state_tensors().items():
+        tensors[f"optim.{k}"] = v
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
-    save_safetensors(tensors, tmp)
+    save_safetensors(tensors, tmp, metadata={"optimizers": json.dumps(state.optimizer.kinds())})
     os.replace(tmp, path)
 
 
 def restore_train_state(path: str, template_state):
     """Load a file of `save_train_state` into `template_state`, a TrainState
     of the same configuration (its tensors are overwritten in place, so the
-    optimizer keeps its references), and return it."""
+    optimizers keep their references), and return it. A state written under
+    other optimizers is refused."""
     if os.path.isdir(path):
         raise ValueError(f"train state at {path} is a directory, not a file of save_train_state")
-    sd = load_safetensors(os.path.abspath(path))
-    params = _params(template_state)
+    path = os.path.abspath(path)
+    sd = load_safetensors(path)
+    params = template_state.optimizer.params()
     n_saved = sum(k.startswith("param_") for k in sd)
     if n_saved != len(params):
         raise ValueError(
             f"train state at {path} has {n_saved} tensors but the current model/optimizer "
             f"configuration has {len(params)}: resume must use the configuration it was saved with"
         )
-    adam: Dict[str, dict] = {}
-    for k, v in sd.items():
-        if k.startswith("adam_"):
-            key, _, idx = k[len("adam_"):].rpartition("_")
-            adam.setdefault(idx, {})[key] = v
-    opt_state = template_state.optimizer.opt.state
+    saved_kinds = json.loads(read_safetensors_metadata(path).get("optimizers", "null"))
+    kinds = template_state.optimizer.kinds()
+    if saved_kinds != kinds:
+        raise ValueError(
+            f"train state at {path} was written under the optimizers {saved_kinds} but this run "
+            f"uses {kinds}: resume must use the optimizers it was saved with")
     with torch.no_grad():
         for i, p in enumerate(params):
             p.copy_(sd[f"param_{i:05d}"])
-            entry = adam.get(f"{i:05d}")
-            if entry:
-                # AdamW keeps its 0-d step count on the CPU unless it is fused
-                opt_state[p] = {k: v if v.ndim == 0 else v.to(p.device) for k, v in entry.items()}
+        template_state.optimizer.load_state_tensors(
+            {k[len("optim."):]: v for k, v in sd.items() if k.startswith("optim.")})
     template_state.step = int(sd["step"])
     template_state.optimizer.count = int(sd["optimizer_count"])
     template_state.generator.set_state(sd["generator"])

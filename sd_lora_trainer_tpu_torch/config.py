@@ -9,7 +9,7 @@ the port branches on are validated.
 
 Options that belong to later slices of the port raise `NotImplementedError`
 naming the slice instead of being silently ignored: the `offload:` remat
-policies, Prodigy and AdamW8bit.
+policies, and more than one process, meshes and tp (main.py).
 """
 
 from __future__ import annotations

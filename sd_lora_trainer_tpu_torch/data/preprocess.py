@@ -411,7 +411,10 @@ def preprocess(
     config.training_attributes["n_training_imgs"] = n_training_imgs
     config.training_attributes["trigger_text"] = trigger_text
     config.training_attributes["segmentation_prompt"] = mask_target_prompts
-    config.training_attributes["gpt_description"] = gpt_concept_description
+    # a description the config supplies stays unless GPT wrote one (the JAX
+    # package sets None here without GPT, so its TI warmup never runs offline)
+    config.training_attributes["gpt_description"] = (
+        gpt_concept_description or config.training_attributes.get("gpt_description"))
     config.training_attributes["captions"] = captions
     # availability fallbacks that fired during this run (loud-failure policy;
     # persisted into training_args.json so degraded runs are auditable)

@@ -25,10 +25,14 @@ grouped drawing, so the same batches), then runs them one by one: eager
 PyTorch has no compiled call to amortize. There is no prewarm: nothing
 compiles per shape.
 
-Later slices of the port raise `NotImplementedError` naming their ROADMAP
-Queue A item: more than one process or any device mesh (item 8), the TI
-warmup against a concept description (item 6), Prodigy and AdamW8bit
-(item 7, in training/optimizers.py).
+With `token_warmup_steps` and a concept description (GPT's, or the
+config's own `training_attributes["gpt_description"]`), the TI rows are
+first warmed up against the description (training/token_warmup.py).
+
+`sharding_mode` "fsdp" on one process and no mesh trains as "dp": one
+device, as the JAX package's mesh of one device does. More than one
+process, "tp" or a device mesh raise `NotImplementedError` naming the
+ROADMAP Queue A item "Parallelism".
 """
 
 from __future__ import annotations
@@ -61,8 +65,9 @@ from sd_lora_trainer_tpu_torch.models.tokenizer import CLIPTokenizer, build_size
 from sd_lora_trainer_tpu_torch.models.weights import LoadedModels, load_models_from_checkpoint
 from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
 from sd_lora_trainer_tpu_torch.training.embeddings import TokenEmbeddingsHandler
-from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer, group_tensors
+from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer, current_lrs, group_tensors
 from sd_lora_trainer_tpu_torch.training.step import FrozenModels, StepConfig, TrainState, make_train_step
+from sd_lora_trainer_tpu_torch.training.token_warmup import warmup_token_embeddings
 from sd_lora_trainer_tpu_torch.utils.utils import dtype_map, seed_everything
 
 # the line train() prints last, for scripts that read its phase times
@@ -170,23 +175,23 @@ class BucketedDraws:
 
 def _refuse_later_slices(config: TrainingConfig) -> None:
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1 or config.sharding_mode != "dp" or config.mesh_data_parallel > 1:
+    if world > 1 or config.sharding_mode == "tp" or config.mesh_data_parallel > 1:
         raise NotImplementedError(
             f"WORLD_SIZE={world}, sharding_mode={config.sharding_mode!r}, "
             f"mesh_data_parallel={config.mesh_data_parallel}: the port trains on one device; "
-            "processes, meshes and sharding are ROADMAP Queue A item 8")
+            "processes, meshes and tp are the ROADMAP Queue A item \"Parallelism\"")
 
 
-def _trainable_copy(tree):
+def trainable_copy(tree):
     """A full finetune's trainable UNet: a copy of the base whose float
     tensors require grad (the frozen base stays for rendering, as in JAX)."""
     if torch.is_tensor(tree):
         t = tree.detach().clone()
         return t.requires_grad_() if t.is_floating_point() else t
     if isinstance(tree, dict):
-        return {k: _trainable_copy(v) for k, v in tree.items()}
+        return {k: trainable_copy(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_trainable_copy(v) for v in tree]
+        return [trainable_copy(v) for v in tree]
     return tree
 
 
@@ -256,11 +261,35 @@ def train(config: TrainingConfig):
               if loaded.text_encoder_2 else None]
     init_gen = torch.Generator(device=device).manual_seed(config.seed)
     ti_rows = handler.initialize_new_tokens(tables, config.inserting_list_tokens, init_gen)
-    if (config.token_warmup_steps > 0 and not config.disable_ti
-            and config.training_attributes.get("gpt_description")):
-        raise NotImplementedError(
-            "token_warmup_steps > 0 with a concept description: the TI warmup "
-            "(training/token_warmup.py) is ROADMAP Queue A item 6")
+    description = config.training_attributes.get("gpt_description")
+    if config.token_warmup_steps > 0 and not config.disable_ti and description:
+        t0 = time.perf_counter()
+        print(f"Warming up token embeddings with prompt: {description}...")
+        encoders = {"te1": (loaded.text_encoder, loaded.text_encoder_config, tok1)}
+        if loaded.text_encoder_2 is not None:
+            encoders["te2"] = (loaded.text_encoder_2, loaded.text_encoder_2_config, tok2)
+
+        def ids(tok, text):
+            return torch.as_tensor(np.asarray(tok([text]), np.int64), device=device)
+
+        rows, warmup_losses = warmup_token_embeddings(
+            {w: ti_rows[i] for i, w in enumerate(encoders)},
+            {w: e[0] for w, e in encoders.items()}, {w: e[1] for w, e in encoders.items()},
+            loaded.version, {w: ids(e[2], config.token_dict["TOK"]) for w, e in encoders.items()},
+            {w: ids(e[2], description) for w, e in encoders.items()},
+            {w: handler.distribution_targets[i] for i, w in enumerate(encoders)},
+            steps=config.token_warmup_steps, ti_lr=config.ti_lr,
+            ti_weight_decay=config.ti_weight_decay, tok_cov_reg_w=config.tok_cov_reg_w,
+        )
+        for i, w in enumerate(encoders):
+            ti_rows[i] = rows[w]
+        _sync(device)
+        timings["token_warmup"] = {"steps": config.token_warmup_steps,
+                                   "s": time.perf_counter() - t0, "losses": warmup_losses}
+        if config.debug and warmup_losses:
+            from sd_lora_trainer_tpu_torch.utils.plots import plot_loss
+
+            plot_loss(warmup_losses, os.path.join(str(config.output_dir), "token_warmup_loss.png"))
 
     # ---- trainable tree + optimizer ----
     trainable: Dict = {}
@@ -270,7 +299,7 @@ def train(config: TrainingConfig):
             targets=UNET_TARGETS, use_dora=config.use_dora)
     else:
         print("Doing full fine-tuning on the U-Net")
-        trainable["unet"] = _trainable_copy(loaded.unet)
+        trainable["unet"] = trainable_copy(loaded.unet)
     if not config.disable_ti:
         trainable["ti"] = {"te1": ti_rows[0]}
         if ti_rows[1] is not None:
@@ -559,8 +588,8 @@ def train(config: TrainingConfig):
                     metrics_hosted[k] = len(seq)
 
         if config.debug:
-            for name, sched in state.optimizer.schedules.items():
-                lr_history.setdefault(name, []).append(float(sched(global_step)))
+            for k, v in current_lrs(config, global_step, state.optimizer).items():
+                lr_history.setdefault(k, []).append(v)
             for which, rows_t in state.trainable.get("ti", {}).items():
                 for i, s in enumerate(rows_t.detach().float().std(dim=1, correction=0).tolist()):
                     token_stds.setdefault(f"{which}_token_{i}", []).append(s)

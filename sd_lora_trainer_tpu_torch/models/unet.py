@@ -281,7 +281,7 @@ def _named_policy_remat(spec: str, cfg: UNetConfig):
     if kind == "offload":
         raise NotImplementedError(
             f"remat={spec!r}: host offload of named activations is not ported "
-            "(a later slice of the port, ROADMAP Queue A item 10)"
+            "(a later slice of the port, ROADMAP Queue A, the item \"offload: remat\")"
         )
     if kind != "save":
         raise ValueError(f"unknown named remat policy {spec!r}: expected 'save:<names>'")

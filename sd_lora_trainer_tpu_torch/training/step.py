@@ -3,7 +3,7 @@
 One step: CLIP-L + OpenCLIP-bigG conditioning with trainable TI rows, DDPM
 add_noise, the UNet forward and backward through LoRA (flash self-attention
 on the card, DAAM scores from cross-attention), the Min-SNR masked MSE, the
-token-attention loss, the L1 penalty and the TI regularizers, then one AdamW
+token-attention loss, the L1 penalty and the TI regularizers, then one optimizer
 update per group.
 
 - trainable tree: {"unet": lora tree, "ti": {"te1": rows, "te2": rows},
@@ -119,7 +119,7 @@ class StepConfig:
         elif isinstance(remat, str) and "offload:" in remat:
             raise NotImplementedError(
                 f"remat={remat!r}: host offload of named activations is a later slice of "
-                "the port (ROADMAP Queue A item 10)"
+                "the port (ROADMAP Queue A, the item \"offload: remat\")"
             )
         return cls(
             snr_gamma=config.snr_gamma,

@@ -62,11 +62,22 @@ def test_later_slice_options_raise(kw):
         StepConfig.from_config(_cfg(**kw), 1.0)
 
 
-@pytest.mark.parametrize("kw", [{"unet_optimizer_type": "prodigy"},
-                                {"unet_optimizer_type": "AdamW8bit"}, {"ti_optimizer": "prodigy"}])
-def test_later_slice_optimizers_raise(kw):
-    with pytest.raises(NotImplementedError, match="later slice"):
-        to.GroupOptimizer(_cfg(**kw), {"unet": {"x": torch.zeros(2, requires_grad=True)}})
+@pytest.mark.parametrize("kw,kinds", [
+    ({"unet_optimizer_type": "prodigy"}, {"unet": "prodigy", "ti": "adamw"}),
+    ({"unet_optimizer_type": "AdamW8bit"}, {"unet": "adamw8bit", "ti": "adamw"}),
+    ({"ti_optimizer": "prodigy"}, {"unet": "adamw", "ti": "prodigy"}),
+])
+def test_later_slice_optimizers_raise(kw, kinds):
+    """Prodigy and AdamW8bit, once a later slice that raised, now build and
+    step: each group gets its own optimizer and every tensor moves
+    (tests/test_torch_optimizers.py holds them against JAX)."""
+    x = torch.ones(2, requires_grad=True)
+    rows = torch.ones(3, 4, requires_grad=True)
+    opt = to.GroupOptimizer(_cfg(**kw), {"unet": {"x": x}, "ti": {"te1": rows}})
+    assert opt.kinds() == kinds
+    x.grad, rows.grad = torch.ones(2), torch.ones(3, 4)
+    opt.step()
+    assert opt.count == 1 and (x < 1).all() and (rows < 1).all()
 
 
 def test_auto_resolves_to_remat_and_no_int8():

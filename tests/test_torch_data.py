@@ -159,3 +159,40 @@ def test_latent_cache_matches_jax(preprocessed, vaes, bucketing):
         (jb_, jr), (tb_, tr) = jds.bucketed_batch(), tds.bucketed_batch()
         assert tr == tuple(jr) and tb_["captions"] == jb_["captions"]
         assert _rel(tb_["latent_mean"], jb_["latent_mean"]) <= 1e-5
+
+
+def test_preprocess_keeps_a_supplied_description(inputs, monkeypatch):
+    """A concept description the config supplies survives preprocessing
+    unless GPT writes one (the TI warmup needs it offline). The JAX package
+    overwrites it with None without GPT; everything else it writes is the
+    same."""
+    outs = _run_both(inputs, training_attributes={"gpt_description": "a red fox"})
+    (jc, jdir), (tc, tdir) = outs["jax"], outs["port"]
+    assert jc.training_attributes["gpt_description"] is None  # the JAX fault, not copied
+    assert tc.training_attributes["gpt_description"] == "a red fox"
+    with open(os.path.join(jdir, "captions.csv"), "rb") as f, \
+            open(os.path.join(tdir, "captions.csv"), "rb") as g:
+        assert f.read() == g.read()
+
+    from sd_lora_trainer_tpu_torch.data import preprocess as tp
+
+    real = tp.post_process_captions
+
+    def with_gpt(captions, *a, **kw):
+        captions, trigger, _ = real(captions, *a, **kw)
+        return captions, trigger, "a fox written by GPT"
+
+    monkeypatch.setattr(tp, "post_process_captions", with_gpt)
+    work = inputs / "work_port_gpt"
+    config = _config(TConfig, inputs / "src", work,
+                     training_attributes={"gpt_description": "a red fox"})
+    config, _ = t_preprocess(
+        config, working_directory=str(work), concept_mode=config.concept_mode,
+        input_zip_path=config.lora_training_urls, caption_text=config.caption_prefix,
+        mask_target_prompts=config.mask_target_prompts, target_size=config.resolution,
+        crop_based_on_salience=config.crop_based_on_salience,
+        use_face_detection_instead=config.use_face_detection_instead,
+        left_right_flip_augmentation=config.left_right_flip_augmentation,
+        augment_imgs_up_to_n=config.augment_imgs_up_to_n, caption_model=config.caption_model,
+        seed=config.seed)
+    assert config.training_attributes["gpt_description"] == "a fox written by GPT"

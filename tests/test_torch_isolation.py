@@ -36,7 +36,9 @@ def test_port_modules_exist():
                  "models.vae", "models.synthesize", "models.tokenizer", "models.tokenizer_native",
                  "data.preprocess", "data.dataset", "data.bucketing", "data.io",
                  "data.captioners", "data.face_masks", "data.super_resolution",
-                 "inference", "main", "utils.utils", "utils.val_prompts", "utils.plots"):
+                 "inference", "main", "utils.utils", "utils.val_prompts", "utils.plots",
+                 "training.prodigy", "training.quantized_adam", "training.token_warmup",
+                 "predict", "node", "comfyui_init"):
         assert f"sd_lora_trainer_tpu_torch.{name}" in mods
 
 

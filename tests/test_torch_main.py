@@ -16,6 +16,9 @@
 - with the final-save margin at 0, the in-loop checkpoint and render write
   their artifacts, and the summary's launches and loop seconds leave the
   render's out;
+- the TI warmup runs on a description the config supplies; Prodigy and a
+  full finetune under AdamW8bit with sharding_mode "fsdp" train and resume
+  bit-equal;
 - what later slices port raises `NotImplementedError` naming its item.
 """
 
@@ -304,11 +307,76 @@ def test_bucketed_draws_drop_nothing():
     assert leaders == list(range(2, 200, 2)) and not draws.pending
 
 
-@pytest.mark.parametrize("kw", [{"sharding_mode": "tp"}, {"sharding_mode": "fsdp"},
+@pytest.mark.parametrize("kw", [{"sharding_mode": "tp"}, {"sharding_mode": "fsdp", "WORLD_SIZE": "2"},
                                 {"mesh_data_parallel": 2}, {"WORLD_SIZE": "2"}])
 def test_later_slices_raise(env, monkeypatch, kw):
+    """More than one process, tp and meshes are a later slice ("fsdp" on one
+    process trains: test_resume_is_exact_under_each_optimizer)."""
     if "WORLD_SIZE" in kw:
         monkeypatch.setenv("WORLD_SIZE", kw.pop("WORLD_SIZE"))
     config = TConfig(**_cfg(env, device="cpu", **kw))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="Parallelism"):
         next(tmain.train(config))
+
+
+def test_warmup_runs_on_a_supplied_description(env, monkeypatch):
+    """token_warmup_steps with a description in the config's
+    training_attributes: preprocessing keeps it, and `train` warms both
+    encoders' rows against it (token string vs description ids) before the
+    steps, which start from the warmed rows."""
+    calls = []
+    real = tmain.warmup_token_embeddings
+
+    def spy(rows, *a, **kw):
+        out = real(rows, *a, **kw)
+        calls.append((rows, a, kw, out))
+        return out
+
+    monkeypatch.setattr(tmain, "warmup_token_embeddings", spy)
+    description = "a colorful test pattern"
+    config = TConfig(**_cfg(env, name="warm", token_warmup_steps=3, weight_type="fp32",
+                            device="cpu", max_train_steps=2,
+                            training_attributes={"gpt_description": description}))
+    config, save_dir = _run(config)
+    assert config.training_attributes["gpt_description"] == description
+    (rows, a, kw, (warmed, history)), = calls
+    te_params, te_configs, version, token_ids, target_ids, dist = a
+    assert sorted(rows) == sorted(te_params) == sorted(dist) == ["te1", "te2"] and version == "sdxl"
+    assert kw["steps"] == 3 and kw["ti_lr"] == config.ti_lr
+    for w in rows:
+        assert not torch.equal(token_ids[w], target_ids[w])
+        assert (warmed[w].detach() - rows[w].detach()).abs().max() > 0  # the rows moved
+    assert all(np.isfinite(v).all() for v in history.values()) and "concept_description_loss" in history
+    assert os.path.exists(os.path.join(save_dir, "warm_sdxl_embeddings.safetensors"))
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("prodigy", dict(unet_optimizer_type="prodigy", ti_optimizer="prodigy")),
+    ("ff8bit", dict(is_lora=False, unet_optimizer_type="AdamW8bit", sharding_mode="fsdp",
+                    disable_ti=True)),
+])
+def test_resume_is_exact_under_each_optimizer(env, monkeypatch, name, kw):
+    """The CLI trains under Prodigy (UNet and TI) and a full finetune under
+    AdamW8bit with sharding_mode "fsdp" on one process; a run resumed from
+    its step-2 train state ends bit-equal to the whole run."""
+    saved = {}
+    real_save = tmain.save_train_state
+
+    def keep_each(path, state):
+        real_save(path, state)
+        saved[state.step] = path + f".{state.step}"
+        real_save(saved[state.step], state)
+
+    monkeypatch.setattr(tmain, "save_train_state", keep_each)
+    base = dict(max_train_steps=4, checkpointing_steps=2, steps_per_call=1, save_train_state=True,
+                weight_type="fp32", device="cpu", n_sample_imgs=1, **kw)
+    cw, whole = _run(TConfig(**_cfg(env, name=name, **base)))
+    assert all(np.isfinite(v).all() for v in cw.training_attributes["final_losses"].values())
+    _, resumed = _run(TConfig(**_cfg(env, name=name, resume_from=saved[2], **base)))
+    files = sorted(f for f in os.listdir(whole)
+                   if f.endswith(".safetensors") and not f.startswith("train_state"))
+    assert files == ([f"{name}_sdxl_embeddings.safetensors", f"{name}_sdxl_lora.safetensors"]
+                     if kw.get("is_lora", True) else ["unet_finetuned.safetensors"])
+    for f in files:
+        a, b = load_safetensors(os.path.join(whole, f)), load_safetensors(os.path.join(resumed, f))
+        assert a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a), f
