@@ -17,7 +17,7 @@ fatal on failure (the script exits non-zero and prints no result):
    csrc/ with nvcc and prints each kernel's registers and spills;
 2. kernels: each kernel against its plain PyTorch version in bf16 at the
    shapes the UNet gives it (SDXL 1024px bs=4, ragged buckets, SD1.5 head
-   dims), with its time, the plain version's and PyTorch SDPA's (forward
+   dims, the tp split's [4,5,4096,64] and [4,10,1024,64]), with its time, the plain version's and PyTorch SDPA's (forward
    beside flash_fwd, backward beside flash_bwd), equal bits from two
    flash_fwd launches, and the run-to-run difference of flash_bwd's dq (its
    atomic adds);
@@ -60,10 +60,29 @@ fatal on failure (the script exits non-zero and prints no result):
    else the product's defaults: bucketing, the "auto" plan, the int8 base,
    fused qkv, TI). Checks the artifact set, the LoRA read back bit for bit,
    finite losses, and flash launches by the train steps and by the render;
-   prints each phase's time from the trainer's `[train-summary]` line.
+   prints each phase's time from the trainer's `[train-summary]` line;
+8. parallel: the parallel code, each run launched by
+   `python -m torch.distributed.run` with this script's `--parallel-rank`
+   as the ranks (one JSON file each, collected here; on a failure the tail
+   of the ranks' output): "nccl1", 3 default-plan LoRA+TI steps of phase 4
+   on one rank over NCCL; "dp2", the same with 2 ranks sharing the card over
+   gloo (2 rows a rank); "tp2", LoRA+TI on a bf16 unfused base with the
+   frozen UNet split over a model group of 2 (the flash kernels on each
+   rank's 5 and 10 heads); "fsdp2", the full finetune of phase 6 sharded
+   over 2 ranks, 2 steps under AdamW and 2 under AdamW8bit. Rank 0 then runs
+   the same steps on one process, twice: the first step's gradients must
+   agree within PARALLEL_GRAD_TOL, every step's loss within
+   PARALLEL_LOSS_TOL, and the update within PARALLEL_UPDATE_FACTOR times
+   the two one-process runs' own difference;
+   every rank prints s/step, peak memory, collective calls and bytes by
+   kind (> 0 on the 2-rank runs) and flash launches (> 0 for both kernels).
+After phase 5 an offload check runs on the trained state: one LoRA+TI loss
+and backward under `offload:flash_out*,flash_lse*` against
+`save:flash_out*,flash_lse*` (gradients within 1e-3, the kept tensors in
+pinned host memory, the peak below save:'s; s/step of each).
 It then prints the `kernels` JSON line (launches from the cli run, by path
-in `launches_by_path`: the train plans, the optim phase's paths and the cli
-run), the nvidia-smi line, and as the last line the result object.
+in `launches_by_path`: the train plans, the optim phase's paths, the cli
+run and rank 0 of each parallel run), the nvidia-smi line, and as the last line the result object.
 """
 
 from __future__ import annotations
@@ -115,6 +134,9 @@ KERNEL_CASES = [
     ("sd15_d40_4096", 4, 8, 4096, 40),
     ("sd15_d80_1024", 4, 8, 1024, 80),
     ("sd15_d160_256", 4, 8, 256, 160),
+    # the tp split's shapes: SDXL's 10 and 20 heads, 5 and 10 a rank of 2
+    ("tp2_4096", 4, 5, 4096, 64),
+    ("tp2_1024", 4, 10, 1024, 64),
 ]
 # calls per UNet pass at SDXL 1024px: 10 blocks at 4096 tokens, 60 at 1024
 MAIN_PATH_CALLS = {"sdxl_4096": 10, "sdxl_1024": 60}
@@ -1164,16 +1186,408 @@ def phase_cli():
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# phase 8: each run of the parallel code, launched by torchrun; the card is
+# one, so the 2-rank runs share it over gloo (NCCL refuses two ranks on one
+# device). (ranks, backend, sharding mode, full finetune)
+PARALLEL_RUNS = {"nccl1": (1, "nccl", "dp", False), "dp2": (2, "gloo", "dp", False),
+                 "tp2": (2, "gloo", "tp", False), "fsdp2": (2, "gloo", "fsdp", True)}
+PARALLEL_LORA_STEPS = 3
+PARALLEL_FF_STEPS = 2  # per optimizer, AdamW then AdamW8bit
+# the first step's gradients, parallel against one process (same params and
+# draws): the reference phase's card-vs-CPU gate (bf16 kernels, another
+# order of the sums over rows and heads, dq's atomics)
+PARALLEL_GRAD_TOL = 2e-2
+# every step's loss, parallel against one process, relative
+PARALLEL_LOSS_TOL = 1e-2
+# The update after the steps, parallel against one process (relative L2
+# over every tensor), is held to this many times the spread of two
+# identical one-process runs measured beside it, not to RESUME_TOL. Adam's
+# first updates move each element by about the LR whatever its gradient's
+# size, so an element whose gradient sits at the rounding noise steps
+# either way: two identical one-process runs differ by 0.07-0.12 after 2-3
+# steps (H100, this phase). A parallel run's gradients differ from one
+# process's by more than that run-to-run noise (GEMMs over 2 rows instead
+# of 4, other sums over rows and heads), and its update by 1.9-2.9 times
+# the spread (H100 80GB HBM3 at 700 W, every run of this phase). An update
+# unrelated to the reference reads about 1.4 (two independent sign
+# patterns), over 10 times the spread.
+PARALLEL_UPDATE_FACTOR = 5
+# the train state's gather under fsdp (what save_train_state writes, every
+# rank entering): the card's memory above what it held before, GiB. The
+# gather holds one whole tensor at a time on a card (SDXL's largest
+# trainable is 26 MB in bf16) and lands in rank 0's host memory
+PARALLEL_SAVE_GIB = 1.0
+
+
+def _parallel_setup(run: str, device):
+    """The run's frozen models, initial trainables, batch and config, built
+    from the same seeds as every other rank's and as its reference's."""
+    from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
+    from sd_lora_trainer_tpu_torch.models.unet import SDXL_UNET_CONFIG
+
+    _, _, mode, full = PARALLEL_RUNS[run]
+    built = _build_run(SDXL_UNET_CONFIG, str(device), torch.bfloat16, batch=None, latent_hw=128,
+                       rank=16, fuse=mode != "tp" and not full, full=True,
+                       config_path=FF_CONFIG if full else TRAIN_CONFIG)
+    config = built["config"]
+    config.sharding_mode = mode
+    if full:
+        config.resolution = 1024
+    elif mode != "tp":
+        quantize_frozen(built["frozen"], config.resolve_quantize_base())  # the default plan
+    init = {} if full else copy.deepcopy(built["state"].trainable)
+    for key in ("state", "tensors", "compute_loss"):  # each run below makes its own
+        del built[key]
+    return built["frozen"], init, built["batch"], config
+
+
+def _parallel_steps(config, frozen, trainable, batch, steps: int, plan=None,
+                    ref_grads=None, save_check: bool = False) -> dict:
+    """`steps` train steps (the generator seeded alike on every rank and in
+    the reference); the trainables after them, gathered whole on rank 0
+    (None on the others). The first step's gradients are kept, or, given
+    `ref_grads`, only their rel L2 against those. `save_check`: the
+    gathers also take the train state as `save_train_state` writes it, and
+    the card's memory above what it held before them is recorded."""
+    from sd_lora_trainer_tpu_torch.checkpoint import whole_train_state
+    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.parallel import sharding as sh
+    from sd_lora_trainer_tpu_torch.parallel.distributed import unshard_to_rank0
+    from sd_lora_trainer_tpu_torch.training import step as ts
+    from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer, group_tensors
+
+    device = batch["latent_mean"].device
+    totals = {"unet": plan.batch.total} if plan is not None and plan.fsdp is not None else None
+    state = ts.TrainState(step=0, trainable=trainable,
+                          optimizer=GroupOptimizer(config, trainable, totals),
+                          generator=torch.Generator(device=device).manual_seed(11))
+    sc = dataclasses.replace(ts.StepConfig.from_config(config, 1.0), parallel=plan)
+    step = ts.make_train_step(sc)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fa.reset_launch_counts()  # this path's run starts here
+    sh.reset_collective_stats()
+    secs, losses, grads, grad_rel = [], [], None, None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = step(state, batch, frozen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        losses.append(float(metrics["tot_loss"]))
+        if i == 0:  # the first step's gradients (same params and draws in every run)
+            grads = [_whole_grad(t, plan) for t in group_tensors(state.trainable)]
+            if ref_grads is not None:
+                grad_rel = (_rel_l2(grads, ref_grads), _sign_frac(grads, ref_grads))
+                grads = None
+    out = {"grads": grads, "grad_rel": grad_rel, "steps_s": secs,
+           "s_per_step": sum(secs[1:]) / max(len(secs) - 1, 1),
+           "losses": losses, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "launches": dict(fa.LAUNCHES), "collectives": sh.collective_stats(),
+           "kinds": state.optimizer.kinds()}
+    state.optimizer.zero_grad()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    whole = unshard_to_rank0(state.trainable, plan)
+    if save_check:
+        tensors = whole_train_state(state, plan, whole)
+        torch.cuda.synchronize()
+        out["save"] = {"s": time.perf_counter() - t,
+                       "over_gib": (torch.cuda.max_memory_allocated() - before) / 2**30,
+                       "tensors": None if tensors is None else len(tensors),
+                       "gb": None if tensors is None else sum(
+                           v.numel() * v.element_size() for v in tensors.values()) / 1e9,
+                       "on_device_gb": None if tensors is None else sum(
+                           v.numel() * v.element_size() for v in tensors.values()
+                           if v.is_cuda) / 1e9}
+        del tensors
+    out["final"] = ([t.detach().to(device, copy=True) for t in group_tensors(whole)]
+                    if plan is None or plan.mesh.is_main else None)
+    del state, step, whole
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _whole_grad(t, plan):
+    g = t.grad if t.grad is not None else torch.zeros_like(t)
+    if plan is not None and plan.is_sharded(t):
+        return plan.fsdp.full_of(t, g)
+    return g.detach().clone()
+
+
+def _sign_frac(xs, ys) -> float:
+    """The share of elements whose signs differ: where Adam's first update
+    (lr x sign(g)) of two runs differs."""
+    differ = sum(int((torch.sign(x) != torch.sign(y)).sum()) for x, y in zip(xs, ys))
+    return differ / sum(x.numel() for x in xs)
+
+
+def _rel_l2(xs, ys, base=None) -> float:
+    """|xs - ys| over |ys - base| (over |ys| without a base), L2 over every tensor."""
+    num = sum(float(((x.float() - y.float()) ** 2).sum()) for x, y in zip(xs, ys))
+    den = sum(float(((y.float() - (0 if b is None else b.float())) ** 2).sum())
+              for y, b in zip(ys, base or [None] * len(ys)))
+    return math.sqrt(num / den)
+
+
+def parallel_rank(run: str) -> int:
+    """One rank of a phase-8 run (started by torchrun): the run's steps under
+    its plan; rank 0 then runs the same steps on one process, no plan, and
+    compares. Writes its numbers to CHIP_SMOKE_RANK_DIR/<run>_<rank>.json."""
+    import torch.distributed as dist
+
+    from sd_lora_trainer_tpu_torch.main import trainable_copy
+    from sd_lora_trainer_tpu_torch.parallel import sharding as sh
+    from sd_lora_trainer_tpu_torch.parallel.distributed import (
+        maybe_initialize_distributed, rank_device)
+
+    world, rank = maybe_initialize_distributed("cuda")
+    device = rank_device("cuda")
+    n, _, mode, full = PARALLEL_RUNS[run]
+    check(world == n and dist.is_initialized(), f"{run}: world {world}, expected {n}")
+    t0 = time.perf_counter()
+    frozen, init, batch, config = _parallel_setup(run, device)
+    build_s = time.perf_counter() - t0
+    n_model = 2 if mode == "tp" else 1
+    mesh = sh.Mesh(world // n_model, n_model, device=device)
+    passes = [("adamw", PARALLEL_FF_STEPS), ("AdamW8bit", PARALLEL_FF_STEPS)] if full else [
+        (config.unet_optimizer_type, PARALLEL_LORA_STEPS)]
+    result = {"run": run, "rank": rank, "world": world,
+              "mesh": f"mesh data={mesh.n_data} x model={mesh.n_model}, backend {mesh.backend}",
+              "build_s": build_s, "passes": {}}
+    for optimizer, steps in passes:
+        cfg = dataclasses.replace(config, unet_optimizer_type=optimizer)
+        trainable = ({"unet": trainable_copy(frozen.unet_params)} if full
+                     else copy.deepcopy(init))
+        plan, trainable, frozen_p = sh.parallelize(mode, mesh, trainable, frozen)
+        par = _parallel_steps(cfg, frozen_p, trainable, batch, steps, plan,
+                              save_check=full and optimizer == "adamw")
+        del trainable, frozen_p, plan
+        gc.collect()
+        torch.cuda.empty_cache()
+        entry = {k: v for k, v in par.items() if k not in ("final", "grads")}
+        dist.barrier()
+        if rank == 0:
+            # the same steps on one process, twice: the reference, and the
+            # spread of two identical runs (the kernels' atomics and torch's
+            # nondeterministic backward ops, which Adam's first steps amplify)
+            start = ([t.detach() for t in _leaves(frozen.unet_params)
+                      if t.is_floating_point()] if full else
+                     [t.detach() for t in _leaves(init) if t.is_floating_point()])
+            refs = []
+            for _ in range(2):
+                trainable = ({"unet": trainable_copy(frozen.unet_params)} if full
+                             else copy.deepcopy(init))
+                refs.append(_parallel_steps(cfg, frozen, trainable, batch, steps,
+                                            ref_grads=refs[0]["grads"] if refs else None))
+                del trainable
+            ref = refs[0]
+            check(len(par["final"]) == len(ref["final"]) == len(start),
+                  f"{run}: {len(par['final'])} trainables against {len(ref['final'])}")
+            entry.update(grad_rel=_rel_l2(par["grads"], ref["grads"]),
+                         sign_frac=_sign_frac(par["grads"], ref["grads"]),
+                         control_grad_rel=refs[1]["grad_rel"][0],
+                         control_sign_frac=refs[1]["grad_rel"][1],
+                         update_rel=_rel_l2(par["final"], ref["final"], start),
+                         control_rel=_rel_l2(refs[1]["final"], ref["final"], start),
+                         ref_s_per_step=ref["s_per_step"], ref_peak_gib=ref["peak_gib"],
+                         ref_losses=ref["losses"])
+            del ref, refs
+        del par
+        gc.collect()
+        torch.cuda.empty_cache()
+        dist.barrier()
+        result["passes"][optimizer] = entry
+    # a file per rank: the ranks share torchrun's stdout, where lines interleave
+    with open(os.path.join(os.environ["CHIP_SMOKE_RANK_DIR"], f"{run}_{rank}.json"), "w") as f:
+        json.dump(result, f)
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel() -> dict:
+    """Phase 8: each run of PARALLEL_RUNS through torchrun, every rank's
+    numbers, and the gates: the first step's gradients, every step's loss
+    and the update against the one-process run, collective bytes > 0 on the
+    2-rank runs, both flash kernels launched on every rank."""
+    out = {}
+    for run, (n, backend, mode, full) in PARALLEL_RUNS.items():
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               f"--nproc_per_node={n}", os.path.join(ROOT, "chip_smoke.py"), "--parallel-rank",
+               run]
+        t0 = time.perf_counter()
+        # the ranks meet on this host: gloo's sockets on the loopback interface
+        rank_dir = tempfile.mkdtemp(prefix=f"{run}_", dir=os.path.join(ROOT, "build"))
+        env = {**os.environ, "PYTHONPATH": ROOT, "SDT_DIST_BACKEND": backend,
+               "OMP_NUM_THREADS": "4", "GLOO_SOCKET_IFNAME": "lo",
+               "CHIP_SMOKE_RANK_DIR": rank_dir}
+        proc = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=480,
+                              env=env)
+        wall = time.perf_counter() - t0
+        ranks = []
+        for name in sorted(os.listdir(rank_dir)):
+            with open(os.path.join(rank_dir, name)) as f:
+                ranks.append(json.load(f))
+        shutil.rmtree(rank_dir, ignore_errors=True)
+        if proc.returncode != 0 or len(ranks) != n:
+            log(f"[parallel] {run}: torchrun exited {proc.returncode}; stdout tail:")
+            log(proc.stdout[-3000:])
+            log(f"[parallel] {run}: stderr tail (every rank's):")
+            log(proc.stderr[-6000:])
+        check(proc.returncode == 0 and len(ranks) == n,
+              f"{run}: torchrun exited {proc.returncode} with {len(ranks)} of {n} rank lines")
+        ranks.sort(key=lambda r: r["rank"])
+        for r in ranks:
+            for opt, e in r["passes"].items():
+                coll = {k: v for k, v in e["collectives"].items() if k != "total_bytes"}
+                ref = (f"; one process {e['ref_s_per_step']:.3f} s/step, peak "
+                       f"{e['ref_peak_gib']:.2f} GiB, losses "
+                       f"{[round(x, 5) for x in e['ref_losses']]} (gate "
+                       f"{PARALLEL_LOSS_TOL:.0e} rel), first-step gradients rel L2 "
+                       f"{e['grad_rel']:.2e} (gate {PARALLEL_GRAD_TOL:.0e}; two one-process "
+                       f"runs' {e['control_grad_rel']:.2e}), signs differing in "
+                       f"{e['sign_frac']:.3e} of them (two one-process runs' "
+                       f"{e['control_sign_frac']:.3e}), update rel L2 "
+                       f"{e['update_rel']:.2e} (gate {PARALLEL_UPDATE_FACTOR} x two "
+                       f"one-process runs' {e['control_rel']:.2e})"
+                       if "update_rel" in e else "")
+                log(f"[parallel] {run} rank {r['rank']}/{r['world']} {opt}: {mode}, "
+                    f"{r['mesh']}; steps {[round(x, 3) for x in e['steps_s']]} s "
+                    f"({e['s_per_step']:.3f} s/step after the first), peak {e['peak_gib']:.2f} "
+                    f"GiB, collectives {coll} ({e['collectives']['total_bytes'] / 1e9:.3f} GB), "
+                    f"flash launches {e['launches']}, losses "
+                    f"{[round(x, 5) for x in e['losses']]}{ref}")
+                if "save" in e:
+                    sv = e["save"]
+                    held = (f"; rank 0 holds {sv['tensors']} tensors, {sv['gb']:.3f} GB, "
+                            f"{sv['on_device_gb']:.3f} GB of it on the card"
+                            if sv["tensors"] else "")
+                    log(f"[parallel] {run} rank {r['rank']} {opt}: trainables and train state "
+                        f"gathered in {sv['s']:.1f} s, card memory {sv['over_gib']:.3f} GiB "
+                        f"above what it held (gate {PARALLEL_SAVE_GIB}){held}")
+                    check(sv["over_gib"] <= PARALLEL_SAVE_GIB,
+                          f"{run} rank {r['rank']}: the state's gather took {sv['over_gib']:.3f} "
+                          "GiB of the card")
+                    check(r["rank"] != 0 or (sv["tensors"] and sv["gb"] > 1),
+                          f"{run}: rank 0 gathered {sv}")
+                check(all(v > 0 for v in e["launches"].values()),
+                      f"{run} rank {r['rank']} {opt}: flash launches {e['launches']}")
+                check(n == 1 or e["collectives"]["total_bytes"] > 0,
+                      f"{run} rank {r['rank']} {opt}: no collective bytes")
+                check(all(math.isfinite(x) for x in e["losses"]), f"{run} {opt}: losses")
+                if "update_rel" in e:
+                    check(e["grad_rel"] <= PARALLEL_GRAD_TOL,
+                          f"{run} {opt}: first-step gradients rel L2 {e['grad_rel']:.2e}")
+                    worst = max(abs(a - b) / abs(b) for a, b in zip(e["losses"], e["ref_losses"]))
+                    check(worst <= PARALLEL_LOSS_TOL,
+                          f"{run} {opt}: losses {e['losses']} against {e['ref_losses']}")
+                    check(e["update_rel"] <= PARALLEL_UPDATE_FACTOR * e["control_rel"],
+                          f"{run} {opt}: update rel L2 {e['update_rel']:.2e} against two "
+                          f"one-process runs' {e['control_rel']:.2e}")
+        log(f"[parallel] {run}: {n} rank(s) over {backend} in {wall:.1f} s (launch, build and "
+            f"steps), build {ranks[0]['build_s']:.1f} s")
+        out[run] = {"wall_s": wall, "ranks": ranks,
+                    "launches": {k: sum(e["launches"][k] for e in ranks[0]["passes"].values())
+                                 for k in ("flash_fwd", "flash_bwd")}}
+    return out
+
+
+def phase_offload(run) -> dict:
+    """The LoRA+TI step under `offload:flash_out*,flash_lse*` against
+    `save:flash_out*,flash_lse*` on the trained full-width run: the LoRA
+    gradients of one loss (gate 1e-3, the reference phase's: dq's atomics),
+    the kept tensors pinned host copies, the peak below save:'s; s/step of
+    each."""
+    from sd_lora_trainer_tpu_torch.ops import checkpoint_names as cn
+    from sd_lora_trainer_tpu_torch.training import step as ts
+
+    g = torch.Generator(device="cuda").manual_seed(3)
+    shape = tuple(run["batch"]["latent_mean"].shape[1:])
+    draws = {"latent_eps": torch.randn(shape, generator=g, device="cuda"),
+             "noise": torch.randn(shape, generator=g, device="cuda"),
+             "offset_noise": torch.randn(shape[0], 1, 1, shape[-1], generator=g, device="cuda"),
+             "timesteps": torch.tensor([17, 300, 640, 901], device="cuda")[:shape[0]]}
+    kept = []
+    real = cn._Offloaded
+
+    class Counted(real):
+        def __init__(self, t):
+            super().__init__(t)
+            kept.append((self.host.is_pinned(), t.numel() * t.element_size()))
+
+    out = {}
+    base = run["sc"]
+    cn._Offloaded = Counted
+    try:
+        for kind in ("save", "offload", "save_again"):
+            plan = f"{kind.split('_')[0]}:flash_out*,flash_lse*"
+            run["sc"] = dataclasses.replace(base, remat=plan, stash8="")
+            kept.clear()
+            gc.collect()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            _, grads = _lora_b_grads(run, draws, "cuda", sites="")
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            out[kind] = {"peak_gib": peak, "grads": grads, "offloaded": len(kept),
+                         "host_gb": sum(b for _, b in kept) / 1e9,
+                         "pinned": all(p for p, _ in kept)}
+        for kind in ("save", "offload"):  # the steps update the state: after both gradients
+            run["sc"] = dataclasses.replace(base, remat=f"{kind}:flash_out*,flash_lse*",
+                                            stash8="")
+            step = ts.make_train_step(run["sc"])
+            secs = []
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                step(run["state"], run["batch"], run["frozen"])
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+            out[kind]["s_per_step"] = sum(secs[1:]) / 2
+    finally:
+        cn._Offloaded = real
+        run["sc"] = base
+    rel = _rel(out["offload"]["grads"], out["save"]["grads"])
+    spread = _rel(out["save_again"]["grads"], out["save"]["grads"])
+    o, sv = out["offload"], out["save"]
+    log(f"[offload] LoRA+TI loss+backward, SDXL 1024px bs={shape[0]}: save:flash_out*,flash_lse* "
+        f"peak {sv['peak_gib']:.2f} GiB, {sv['s_per_step']:.3f} s/step; offload: peak "
+        f"{o['peak_gib']:.2f} GiB, {o['s_per_step']:.3f} s/step, {o['offloaded']} tensors "
+        f"({o['host_gb']:.3f} GB a pass) in pinned host memory={o['pinned']}; all LoRA-B "
+        f"gradients rel L2 {rel:.2e} against save:'s, two save: passes {spread:.2e} (gate "
+        f"max(1e-3, 2x that))")
+    check(sv["offloaded"] == 0 and o["offloaded"] > 0 and o["pinned"],
+          f"offload kept {o['offloaded']} tensors (pinned {o['pinned']}), save {sv['offloaded']}")
+    # the kernels' atomics make two passes of one plan differ by about the
+    # reference phase's 1e-3 at full width (8.3e-4 in a shakedown)
+    check(rel <= max(1e-3, 2 * spread), f"offload's gradients differ from save:'s ({rel:.2e}, "
+          f"two save: passes {spread:.2e})")
+    check(o["peak_gib"] < sv["peak_gib"],
+          f"offload's peak {o['peak_gib']:.2f} GiB is not below save:'s {sv['peak_gib']:.2f}")
+    return {k: {kk: vv for kk, vv in v.items() if kk != "grads"} for k, v in out.items()}
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--plan", choices=("auto", "full", "off"), default=None,
                         help="train under this memory plan alone (default: full, then auto)")
+    parser.add_argument("--parallel-rank", choices=sorted(PARALLEL_RUNS), default=None,
+                        help=argparse.SUPPRESS)  # one rank of phase 8, started by torchrun
     args = parser.parse_args()
+    if args.parallel_rank:
+        return parallel_rank(args.parallel_rank)
     smi = phase_device()
     summary = phase_kernels()
     phase_reference()
     run, results = phase_train([args.plan] if args.plan else ["full", "auto"])
     phase_export(run)
+    offload = phase_offload(run)
     del run
     gc.collect()
     torch.cuda.empty_cache()
@@ -1181,16 +1595,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     cli = phase_cli()
+    gc.collect()
+    torch.cuda.empty_cache()
+    parallel = phase_parallel()
     launches = cli["launches"]
     by_path = {f"train_{p}": r["launches"] for p, r in results.items()}
     by_path.update({path: optim[path]["launches"] for path in OPTIM_PATHS})
     by_path.update(cli_train=cli["train_launches"], cli_render=cli["render_launches"])
+    by_path.update({run: parallel[run]["launches"] for run in PARALLEL_RUNS})
     entries = []
     for name, s in summary.items():
         bound, by = _bound_ms(s["flops"], s["bytes"])
         check(launches[name] > 0, f"{name} was never launched on the main path")
-        check(all(by_path[path][name] > 0 for path in OPTIM_PATHS),
-              f"{name} was not launched on every optim path: {by_path}")
+        check(all(by_path[path][name] > 0 for path in OPTIM_PATHS + tuple(PARALLEL_RUNS)),
+              f"{name} was not launched on every optim and parallel path: {by_path}")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"sd_lora_trainer_tpu_torch/csrc/{name}.cu",

@@ -9,10 +9,14 @@ the JAX package's artifact set, under the same names:
     unet_finetuned.safetensors (full finetune) LDM-layout UNet
 
 `load_checkpoint` reads them back. `save_train_state` and
-`restore_train_state` keep what a run needs to resume (one process): the
-trainable tensors, each group's optimizer state (AdamW, Prodigy or
-AdamW8bit), the step and the generator's state, in one flat safetensors
-file written atomically. The files are
+`restore_train_state` keep what a run needs to resume: the trainable
+tensors, each group's optimizer state (AdamW, Prodigy or AdamW8bit), the
+step and the generator's state, in one flat safetensors file written
+atomically. Under fsdp (a `plan` of parallel/sharding.py) the shards and
+their optimizer state are gathered whole into rank 0's host memory first
+(a collective every rank enters) and rank 0 writes, so the file is the
+one-process file: a state saved by N ranks restores in any number of them,
+each taking its shards. The files are
 written and read by utils/safetensors_io.py, not the `safetensors` package.
 """
 
@@ -27,7 +31,10 @@ import torch
 from sd_lora_trainer_tpu_torch.config import sanitize_name
 from sd_lora_trainer_tpu_torch.models.lora import kohya_state_dict, load_kohya_state_dict
 from sd_lora_trainer_tpu_torch.models.weights import export_ldm_unet
+from sd_lora_trainer_tpu_torch.parallel.distributed import unshard_to_rank0
+from sd_lora_trainer_tpu_torch.parallel.sharding import optimizer_state_shardings, state_param_index
 from sd_lora_trainer_tpu_torch.training.embeddings import TXT_ENCODER_KEYS
+from sd_lora_trainer_tpu_torch.training.optimizers import group_tensors
 from sd_lora_trainer_tpu_torch.utils.safetensors_io import (
     load_safetensors,
     read_safetensors_metadata,
@@ -125,35 +132,60 @@ def load_checkpoint(lora_save_path: str, unet_params: dict, te_params: List[Opti
 # ---------------------------------------------------------------------------
 
 
-def save_train_state(path: str, state) -> None:
+def whole_train_state(state, plan, whole=None) -> Optional[Dict[str, torch.Tensor]]:
+    """The train state's tensors under their file keys. Under fsdp a
+    collective every rank enters: the shards and the optimizer state that
+    `optimizer_state_shardings` shards are gathered one tensor at a time
+    into rank 0's host memory, and the other ranks get None. `whole`,
+    `unshard_to_rank0`'s tree where the caller has it, is reused."""
+    sharded = plan is not None and plan.fsdp is not None
+    main = plan is None or plan.mesh.is_main
+    tensors = {
+        "step": torch.tensor(state.step, dtype=torch.int64),
+        "optimizer_count": torch.tensor(state.optimizer.count, dtype=torch.int64),
+        "generator": state.generator.get_state(),
+    }
+    params = state.optimizer.params()
+    if sharded and whole is None:
+        whole = unshard_to_rank0(state.trainable, plan)
+    if sharded and main:
+        params = [t for name in state.optimizer.groups for t in group_tensors(whole[name])]
+    for i, p in enumerate(params):
+        tensors[f"param_{i:05d}"] = p
+    specs = optimizer_state_shardings(state.optimizer, plan.specs) if sharded else {}
+    for name, opt in state.optimizer.groups.items():
+        for k, v in opt.state_tensors().items():
+            if specs.get(f"{name}.{k}"):
+                v = plan.fsdp.on_rank0(plan.fsdp.full_state(v, opt.params[state_param_index(k)]))
+            tensors[f"optim.{name}.{k}"] = v
+    return tensors if main else None
+
+
+def save_train_state(path: str, state, plan=None, whole=None) -> None:
     """Write a TrainState (training/step.py): the trainable tensors in the
     optimizer's order, each group's optimizer state (AdamW's moments and
     step counts; Prodigy's moments, s, p0 and its 0-d d, d_max,
     d_numerator and count; AdamW8bit's uint8 indices and fp32 block scales),
     the optimizers' kinds (in the file's metadata), the update count, the
     step and the generator's state. Atomic: a crash while saving leaves the
-    previous file."""
+    previous file. Under a `plan` every rank calls it and rank 0 writes;
+    `whole` is `unshard_to_rank0`'s tree where the caller has it."""
     path = os.path.abspath(path)
-    tensors = {
-        "step": torch.tensor(state.step, dtype=torch.int64),
-        "optimizer_count": torch.tensor(state.optimizer.count, dtype=torch.int64),
-        "generator": state.generator.get_state(),
-    }
-    for i, p in enumerate(state.optimizer.params()):
-        tensors[f"param_{i:05d}"] = p
-    for k, v in state.optimizer.state_tensors().items():
-        tensors[f"optim.{k}"] = v
+    tensors = whole_train_state(state, plan, whole)
+    if tensors is None:
+        return
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = path + ".tmp"
     save_safetensors(tensors, tmp, metadata={"optimizers": json.dumps(state.optimizer.kinds())})
     os.replace(tmp, path)
 
 
-def restore_train_state(path: str, template_state):
+def restore_train_state(path: str, template_state, plan=None):
     """Load a file of `save_train_state` into `template_state`, a TrainState
     of the same configuration (its tensors are overwritten in place, so the
     optimizers keep their references), and return it. A state written under
-    other optimizers is refused."""
+    other optimizers is refused. Under an fsdp `plan` each rank takes its
+    shards of the whole tensors."""
     if os.path.isdir(path):
         raise ValueError(f"train state at {path} is a directory, not a file of save_train_state")
     path = os.path.abspath(path)
@@ -171,11 +203,24 @@ def restore_train_state(path: str, template_state):
         raise ValueError(
             f"train state at {path} was written under the optimizers {saved_kinds} but this run "
             f"uses {kinds}: resume must use the optimizers it was saved with")
+    sharded = plan is not None and plan.fsdp is not None
+    specs = (optimizer_state_shardings(template_state.optimizer, plan.specs)
+             if sharded else {})
     with torch.no_grad():
         for i, p in enumerate(params):
-            p.copy_(sd[f"param_{i:05d}"])
-        template_state.optimizer.load_state_tensors(
-            {k[len("optim."):]: v for k, v in sd.items() if k.startswith("optim.")})
+            v = sd[f"param_{i:05d}"]
+            p.copy_(plan.fsdp.shard_of(v.to(p.device)) if sharded and plan.is_sharded(p) else v)
+        optim = {}
+        for k, v in sd.items():
+            if not k.startswith("optim."):
+                continue
+            name, _, key = k[len("optim."):].partition(".")
+            if specs.get(f"{name}.{key}"):
+                opt = template_state.optimizer.groups[name]
+                v = plan.fsdp.state_shard(key.rpartition(".")[0], v,
+                                          opt.params[state_param_index(key)])
+            optim[f"{name}.{key}"] = v
+        template_state.optimizer.load_state_tensors(optim)
     template_state.step = int(sd["step"])
     template_state.optimizer.count = int(sd["optimizer_count"])
     template_state.generator.set_state(sd["generator"])

@@ -7,9 +7,8 @@ unchanged. A plain dataclass instead of pydantic: the port's machine has no
 pydantic. Unknown JSON keys are ignored, as there; the choice-valued fields
 the port branches on are validated.
 
-Options that belong to later slices of the port raise `NotImplementedError`
-naming the slice instead of being silently ignored: the `offload:` remat
-policies, and more than one process, meshes and tp (main.py).
+Every option of the JAX package runs: the remat plans (models/unet.py), and
+more than one process, meshes and tp (main.py, parallel/).
 """
 
 from __future__ import annotations

@@ -13,6 +13,13 @@ The resizes replay jax.image.resize exactly: "bicubic" is the Keys cubic
 kernel (a = -0.5) with antialiasing when downsampling, applied as one weight
 matrix per spatial axis; "nearest" samples floor((i + 0.5) * in / out).
 All tensors are NHWC.
+
+`group` (parallel training, parallel/sharding.py `Group`): the batch is this
+rank's rows of the data group's global batch, and each batch-level
+statistic is taken over the global batch (`group.average` of a local mean,
+`group.total` of a count), so that the mean over ranks of each rank's loss
+is the one-process loss of the global batch, and so are its gradients once
+averaged over the ranks.
 """
 
 from __future__ import annotations
@@ -26,8 +33,19 @@ import torch
 from sd_lora_trainer_tpu_torch.diffusion.schedulers import DDPMSchedule
 
 
+def _batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The mean over dim 0 (a global batch's under `group`)."""
+    m = x.mean(dim=0)
+    return m if group is None else group.average(m)
+
+
+def _batch_total(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of a gradient-free tensor (the global batch's under `group`)."""
+    return x.sum() if group is None else group.total(x.sum())
+
+
 def diffusion_loss(model_pred, noise, noisy_latent, latent, mask, schedule: DDPMSchedule,
-                   timesteps, snr_gamma: float) -> torch.Tensor:
+                   timesteps, snr_gamma: float, group=None) -> torch.Tensor:
     """Masked Min-SNR-weighted MSE."""
     if schedule.prediction_type == "epsilon":
         target = noise
@@ -45,9 +63,9 @@ def diffusion_loss(model_pred, noise, noisy_latent, latent, mask, schedule: DDPM
         weights = torch.clamp(snr, max=snr_gamma) / snr
         if schedule.prediction_type == "v_prediction":
             weights = weights + 1.0
-        weighted = per_sample * (weights / weights.mean())
+        weighted = per_sample * (weights / _batch_mean(weights, group))
     mean_mask = mask.float().mean(dim=tuple(range(1, mask.ndim)))
-    return (weighted / (mean_mask / mean_mask.mean())).mean()
+    return (weighted / (mean_mask / _batch_mean(mean_mask, group))).mean()
 
 
 def lora_l1_penalty(mats) -> torch.Tensor:
@@ -68,9 +86,9 @@ def lora_l1_penalty(mats) -> torch.Tensor:
 TARGET_PROMPT_NORM = {"sdxl": 34.5, "sd15": 27.8}
 
 
-def prompt_norm_regularization(prompt_embeds, target_norm: float):
+def prompt_norm_regularization(prompt_embeds, target_norm: float, group=None):
     """(loss, observed mean per-token norm) against the pretrained target."""
-    cond_norms = torch.linalg.norm(prompt_embeds.float(), dim=-1).mean(dim=0)
+    cond_norms = _batch_mean(torch.linalg.norm(prompt_embeds.float(), dim=-1), group)
     observed = cond_norms[2:].mean()
     return (observed - target_norm) ** 2, observed
 
@@ -169,6 +187,7 @@ def token_attention_loss(
     img_ratio: float,
     caption_token_lengths: torch.Tensor,  # [B] int
     ti_token_positions: torch.Tensor,  # [B, n_ti] int, -1 if absent
+    group=None,
 ) -> torch.Tensor:
     """DAAM cross-attention regularizer: (0) mean attention of the caption's
     content tokens, (1) TI-token attention inside the mask, (2) TI-token
@@ -219,7 +238,11 @@ def token_attention_loss(
     ti_heatmaps = (ti_acc / n_layers).permute(0, 3, 1, 2)  # [B, n_ti, h, w]
     ti_masks = mask2[:, None, :, :].expand_as(ti_heatmaps)
     valid_f = valid.float()
-    n_valid = torch.clamp(valid_f.sum(), min=1.0)
+    # this rank's share of the global count: the terms normalized by it are
+    # sums over the rows, and the ranks' losses are averaged
+    n_ranks = 1 if group is None else group.size
+    valid_total = _batch_total(valid_f, group)
+    n_valid = torch.clamp(valid_total, min=1.0) / n_ranks
     vmask = valid_f[:, None, None, None]
     token_att_var = ti_heatmaps.mean(dim=(2, 3)).var(dim=1, correction=1)
 
@@ -229,4 +252,4 @@ def token_attention_loss(
     reg_loss_2 = 2.0 * ((torch.relu(ti_heatmaps * (1.0 - ti_masks) + 10.0) ** 2) * vmask).sum() / norm
     reg_loss_3 = 1.0 * (token_att_var * valid_f).sum() / n_valid
     total = reg_loss_0 + reg_loss_1 + reg_loss_2 + reg_loss_3
-    return torch.where(valid.any(), total, torch.zeros_like(total))
+    return torch.where(valid_total > 0, total, torch.zeros_like(total))

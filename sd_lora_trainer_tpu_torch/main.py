@@ -29,10 +29,17 @@ With `token_warmup_steps` and a concept description (GPT's, or the
 config's own `training_attributes["gpt_description"]`), the TI rows are
 first warmed up against the description (training/token_warmup.py).
 
-`sharding_mode` "fsdp" on one process and no mesh trains as "dp": one
-device, as the JAX package's mesh of one device does. More than one
-process, "tp" or a device mesh raise `NotImplementedError` naming the
-ROADMAP Queue A item "Parallelism".
+More than one process (torchrun, or the JAX package's SDT_* variables;
+parallel/distributed.py) trains on a mesh of one device per process, as the
+JAX package's sharding block lays it out (`resolve_sharding`): "dp" splits
+the global batch over the data group, "fsdp" also shards a full finetune's
+UNet and its optimizer state, "tp" splits the frozen UNet's attention and
+GEGLU projections over a model group of `mesh_model_parallel` (a tp request
+that does not divide falls back with JAX's printed line). "fsdp" on one
+process trains as "dp", as JAX's mesh of one device does. Ranks other than
+0 preprocess into `output_dir/rank{r}`; rank 0 alone writes the artifacts,
+the train state (gathered from every rank first), the renders and the
+plots, while the others wait at a barrier.
 """
 
 from __future__ import annotations
@@ -64,6 +71,13 @@ from sd_lora_trainer_tpu_torch.models.quant import quantize_base_weights, quanti
 from sd_lora_trainer_tpu_torch.models.tokenizer import CLIPTokenizer, build_sized_test_vocab, load_tokenizer
 from sd_lora_trainer_tpu_torch.models.weights import LoadedModels, load_models_from_checkpoint
 from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+from sd_lora_trainer_tpu_torch.parallel import sharding
+from sd_lora_trainer_tpu_torch.parallel.distributed import (
+    barrier,
+    maybe_initialize_distributed,
+    rank_device,
+    unshard_to_rank0,
+)
 from sd_lora_trainer_tpu_torch.training.embeddings import TokenEmbeddingsHandler
 from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer, current_lrs, group_tensors
 from sd_lora_trainer_tpu_torch.training.step import FrozenModels, StepConfig, TrainState, make_train_step
@@ -173,13 +187,39 @@ class BucketedDraws:
         }, step_res
 
 
-def _refuse_later_slices(config: TrainingConfig) -> None:
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1 or config.sharding_mode == "tp" or config.mesh_data_parallel > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}, sharding_mode={config.sharding_mode!r}, "
-            f"mesh_data_parallel={config.mesh_data_parallel}: the port trains on one device; "
-            "processes, meshes and tp are the ROADMAP Queue A item \"Parallelism\"")
+def resolve_sharding(config: TrainingConfig, world: int):
+    """(mode, n_data, n_model) of the mesh a run of `world` processes (one
+    device each) trains on, or None for one device without a mesh: the JAX
+    package's sharding block (sd_lora_trainer_tpu/main.py). Prints its
+    `[sharding]` line; raises where no mesh fits."""
+    n_devices = config.mesh_data_parallel or world
+    if n_devices != world:
+        raise ValueError(f"mesh_data_parallel={config.mesh_data_parallel} needs as many "
+                         f"processes, one per device; this run has {world} (launch with "
+                         f"torchrun --nproc_per_node {config.mesh_data_parallel})")
+    mode = config.sharding_mode
+    if mode == "tp":
+        n_model = max(int(config.mesh_model_parallel), 1)
+        n_data = n_devices // n_model
+        tp_ok = (config.is_lora and n_model > 1 and n_devices % n_model == 0
+                 and (n_data == 1 or config.train_batch_size % n_data == 0))
+        if tp_ok:
+            if config.use_dora:
+                raise ValueError("DoRA needs each output's whole weight norm; it does not run "
+                                 "under sharding_mode 'tp' (use 'dp')")
+            print(f"[sharding] tp over a mesh data={n_data} x model={n_model}")
+            return "tp", n_data, n_model
+        mode = "dp" if config.is_lora else "fsdp"
+        print(f"[sharding] tp requested but devices={n_devices} / model={n_model} / "
+              f"batch={config.train_batch_size} do not divide (or run is not LoRA); "
+              f"falling back to {mode}")
+    if n_devices > 1 and config.train_batch_size % n_devices == 0:
+        print(f"[sharding] {mode} over a mesh data={n_devices}")
+        return mode, n_devices, 1
+    if world > 1:
+        raise ValueError(f"multi-process run needs a device mesh: batch="
+                         f"{config.train_batch_size} must divide {n_devices} global devices")
+    return None
 
 
 def trainable_copy(tree):
@@ -209,8 +249,10 @@ def _launch_delta(before: Dict[str, int]) -> Dict[str, int]:
 
 
 def train(config: TrainingConfig):
-    _refuse_later_slices(config)
-    device = torch.device(config.device)
+    world, rank = maybe_initialize_distributed(config.device)
+    is_main = rank == 0
+    layout = resolve_sharding(config, world)
+    device = rank_device(config.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"config.device={config.device!r} but torch sees no CUDA device; "
                            'set "device": "cpu" in the config to train on the CPU')
@@ -241,8 +283,12 @@ def train(config: TrainingConfig):
 
     # ---- preprocessing ----
     t0 = time.perf_counter()
+    # every rank derives the same dataset; each writes it into its own directory
+    preprocess_dir = str(config.output_dir)
+    if not is_main:
+        preprocess_dir = os.path.join(preprocess_dir, f"rank{rank}")
     config, input_dir = preprocess(
-        config, working_directory=str(config.output_dir), concept_mode=config.concept_mode,
+        config, working_directory=preprocess_dir, concept_mode=config.concept_mode,
         input_zip_path=config.lora_training_urls, caption_text=config.caption_prefix,
         mask_target_prompts=config.mask_target_prompts, target_size=config.resolution,
         crop_based_on_salience=config.crop_based_on_salience,
@@ -313,7 +359,6 @@ def train(config: TrainingConfig):
                     alpha_multiplier=config.lora_alpha_multiplier, targets=TEXT_ENCODER_TARGETS,
                     use_dora=config.use_dora)
         trainable["te_lora"] = te_lora
-    optimizer = GroupOptimizer(config, trainable)
 
     # ---- dataset: the one-time VAE latent cache ----
     t0 = time.perf_counter()
@@ -362,12 +407,24 @@ def train(config: TrainingConfig):
         te1_config=loaded.text_encoder_config, te2_config=loaded.text_encoder_2_config,
         version=loaded.version, resolution=tuple(config.train_img_size),
     )
-    if config.fuse_qkv and config.is_lora and not config.use_dora:
+    if (config.fuse_qkv and config.is_lora and not config.use_dora
+            and config.sharding_mode != "tp"):
         # fused qkv/kv weights for the step's copy; rendering and export read
-        # loaded.unet, which stays unfused
+        # loaded.unet, which stays unfused. tp splits the unfused projections
         frozen = dataclasses.replace(frozen, unet_params=fuse_attention_projections(frozen.unet_params))
+    plan = None
+    if layout is not None:
+        mode, n_data, n_model = layout
+        mesh = sharding.Mesh(n_data, n_model, device=device)
+        print(f"[sharding] {mode}: mesh data={n_data} x model={n_model} over {world} "
+              f"process(es), backend {mesh.backend}")
+        # fsdp: the trainable UNet as this rank's shards; tp: the step's
+        # frozen UNet as this rank's split (loaded.unet stays whole)
+        plan, trainable, frozen = sharding.parallelize(mode, mesh, trainable, frozen)
+    optimizer = GroupOptimizer(config, trainable, totals={"unet": plan.batch.total}
+                               if plan is not None and plan.fsdp is not None else None)
     w0, h0 = config.train_img_size
-    sc = StepConfig.from_config(config, w0 / h0)
+    sc = dataclasses.replace(StepConfig.from_config(config, w0 / h0), parallel=plan)
     if config.remat == "auto":
         print(f"[remat] auto -> {sc.remat}")
     step_fns: Dict = {}
@@ -387,7 +444,7 @@ def train(config: TrainingConfig):
 
     resume_step = 0
     if config.resume_from:
-        state = restore_train_state(config.resume_from, state)
+        state = restore_train_state(config.resume_from, state, plan)
         resume_step = int(state.step)
         if resume_step >= config.max_train_steps:
             raise ValueError(f"resume_from state is at step {resume_step} >= "
@@ -396,9 +453,10 @@ def train(config: TrainingConfig):
               f"from {config.resume_from} at step {resume_step}")
 
     checkpoint_dir = os.path.join(str(config.output_dir), "checkpoints")
-    if os.path.exists(checkpoint_dir):
-        shutil.rmtree(checkpoint_dir)
-    os.makedirs(checkpoint_dir, exist_ok=True)
+    if is_main:
+        if os.path.exists(checkpoint_dir):
+            shutil.rmtree(checkpoint_dir)
+        os.makedirs(checkpoint_dir, exist_ok=True)
 
     losses: Dict[str, List] = {}  # device scalars, pulled to host lazily
     metrics_hosted: Dict[str, int] = {}
@@ -450,8 +508,7 @@ def train(config: TrainingConfig):
                 out[k] = t.to(device)
         return out
 
-    def current_adapters():
-        tr = state.trainable
+    def current_adapters(tr):
         unet_lora = tr.get("unet") if config.is_lora else None
         te_loras = [tr.get("te_lora", {}).get("te1"), tr.get("te_lora", {}).get("te2")]
         ti = tr.get("ti", {})
@@ -461,13 +518,11 @@ def train(config: TrainingConfig):
 
     ckpt_secs, render_secs, rendered, render_launches = [], [], [], []
 
-    def do_checkpoint(output_save_dir):
+    def do_checkpoint(output_save_dir, tr):
         _sync(device)
         t = time.perf_counter()
-        unet_lora, te_loras, rows = current_adapters()
+        unet_lora, te_loras, rows = current_adapters(tr)
         os.makedirs(output_save_dir, exist_ok=True)
-        if config.save_train_state:
-            save_train_state(os.path.join(output_save_dir, "train_state.safetensors"), state)
         config.training_attributes["degradations"] = list(DEGRADATIONS)
         config.save_as_json(os.path.join(output_save_dir, "training_args.json"))
         save_checkpoint(
@@ -475,16 +530,18 @@ def train(config: TrainingConfig):
             pretrained_model_version=config.pretrained_model["version"],
             token_dict=config.token_dict, is_lora=config.is_lora, ti_rows=rows,
             unet_lora=unet_lora, te_loras=te_loras,
-            unet_params=None if config.is_lora else state.trainable["unet"],
+            unet_params=None if config.is_lora else tr["unet"],
             unet_config=None if config.is_lora else loaded.unet_config,
         )
         ckpt_secs.append(time.perf_counter() - t)
 
-    def do_render(output_save_dir):
+    def do_render(output_save_dir, tr):
         _sync(device)
         t, before = time.perf_counter(), _launches()
-        unet_lora, te_loras, rows = current_adapters()
-        render_unet = loaded.unet if config.is_lora else state.trainable["unet"]
+        unet_lora, te_loras, rows = current_adapters(tr)
+        # a full finetune gathered under fsdp lies in host memory
+        render_unet = loaded.unet if config.is_lora else sharding._map(
+            tr["unet"], lambda _, t: t.to(device))
         pipe = InferencePipeline(
             version=loaded.version, unet_params=render_unet, unet_config=loaded.unet_config,
             te1_params=loaded.text_encoder, te1_config=loaded.text_encoder_config,
@@ -508,6 +565,28 @@ def train(config: TrainingConfig):
         render_secs.append(time.perf_counter() - t)
         rendered.append(len(prompts))
         render_launches.append(_launch_delta(before))
+        return prompts
+
+    def save_outputs(output_save_dir) -> List[str]:
+        """One checkpoint: the fsdp shards gathered into rank 0's host memory
+        (every rank enters), the train state, then on rank 0 the artifacts,
+        plots and renders, while the other ranks wait at the barrier.
+        Returns the render prompts."""
+        t = time.perf_counter()
+        tr = unshard_to_rank0(state.trainable, plan)
+        if config.save_train_state:
+            save_train_state(os.path.join(output_save_dir, "train_state.safetensors"), state,
+                             plan, whole=tr)
+        state_s = time.perf_counter() - t
+        prompts: List[str] = []
+        if is_main:
+            do_checkpoint(output_save_dir, tr)
+            ckpt_secs[-1] += state_s
+            if config.debug:
+                write_debug_plots()
+            prompts = do_render(output_save_dir, tr)
+        del tr
+        barrier()
         return prompts
 
     validation_prompts: List[str] = []
@@ -556,6 +635,7 @@ def train(config: TrainingConfig):
     call_k = steps_per_call
     batch_prep_s = 0.0  # host: sampling, caption dropout, tokenization
     before_train = _launches()
+    sharding.reset_collective_stats()  # the summary counts the loop's collectives
     _sync(device)
     loop_start = time.perf_counter()
 
@@ -599,15 +679,13 @@ def train(config: TrainingConfig):
             fps = images_done / (time.time() - start_time)
             print(f"\n---- avg training fps: {fps:.2f}", flush=True)
             output_save_dir = f"{checkpoint_dir}/checkpoint-{global_step}"
-            do_checkpoint(output_save_dir)
-            if config.debug:
-                write_debug_plots()
-            validation_prompts = do_render(output_save_dir)
+            validation_prompts = save_outputs(output_save_dir)
             last_save_step = global_step
 
         if config.save_train_state and crossed(config.checkpointing_steps):
             # the rolling resume state at a fixed path, refreshed every interval
-            save_train_state(os.path.join(str(config.output_dir), "train_state.safetensors"), state)
+            save_train_state(os.path.join(str(config.output_dir), "train_state.safetensors"), state,
+                             plan)
 
         if crossed(progress_stride):
             yield min(global_step / config.max_train_steps + 0.05, 1.0)
@@ -624,14 +702,11 @@ def train(config: TrainingConfig):
     need_final = (global_step - last_save_step) > FINAL_SAVE_MARGIN + 1 or last_save_step == 0
     output_save_dir = f"{checkpoint_dir}/checkpoint-{global_step if need_final else last_save_step}"
     if need_final:
-        do_checkpoint(output_save_dir)
-        if config.debug:
-            write_debug_plots()
-        validation_prompts = do_render(output_save_dir)
+        validation_prompts = save_outputs(output_save_dir)
     else:
         print(f"Skipping final save, {output_save_dir} already exists")
 
-    if config.debug:
+    if config.debug and is_main:
         import zipfile
 
         pkg_dir = os.path.dirname(os.path.abspath(__file__))
@@ -649,13 +724,16 @@ def train(config: TrainingConfig):
     config.training_attributes["final_losses"] = {k: v[-5:] for k, v in host_losses.items()}
     if config.debug:
         config.training_attributes["loss_series"] = host_losses
-    config.save_as_json(os.path.join(output_save_dir, "training_args.json"))
+    if is_main:
+        config.save_as_json(os.path.join(output_save_dir, "training_args.json"))
     timings.update({
         "steps": n_steps, "loop_s": loop_s, "s_per_step": loop_s / max(n_steps, 1),
         "batch_prep_s": batch_prep_s,
         "checkpoint_s": ckpt_secs, "render_s": render_secs, "rendered_images": rendered,
         "launches": {"train": train_launches, "render": render_launches},
         "tot_loss": host_losses.get("tot_loss", []),
+        "world": world, "rank": rank, "sharding": layout[0] if layout else None,
+        "collectives": sharding.collective_stats(),
     })
     print(SUMMARY_TAG + " " + json.dumps(timings), flush=True)
     print("Training job complete, saving outputs...", flush=True)

@@ -11,7 +11,10 @@ layouts and names:
 - norms: "weight", "bias".
 
 A param dict may carry a "lora" subdict ({"a", "b", "alpha"[, "magnitude"]});
-`dense`/`conv2d` apply the low-rank path when present. A "weight" may be an
+`dense`/`conv2d` apply the low-rank path when present. Under tensor
+parallelism a split projection's dict carries a `TPSplit` under "tp"
+(parallel/sharding.py): its weight is this rank's part, and `dense` runs
+the Megatron split. A "weight" may be an
 int8 `QTensor` (models/quant.py): it dequantizes where it is cast. LoRA matrices keep the
 peft/kohya layouts: a (r, in) or (r, in, kh, kw), b (out, r) or (out, r, 1, 1).
 """
@@ -39,9 +42,14 @@ def _apply_lora_dense(p: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor
     """
     lora = p["lora"]
     scale = _lora_scale(lora)
-    a = lora["a"].to(x.dtype)
-    b = lora["b"].to(x.dtype)
-    delta = F.linear(F.linear(x, a), b) * scale
+    tp = p.get("tp")
+    a, b = lora["a"], lora["b"]
+    if tp is not None:
+        if "magnitude" in lora:
+            raise ValueError("DoRA needs each output's whole weight norm; it does not run on "
+                             "a tensor-parallel split (use sharding_mode 'dp')")
+        a, b = tp.lora_a(a), tp.lora_b(b)
+    delta = F.linear(F.linear(x, a.to(x.dtype)), b.to(x.dtype)) * scale
     if "magnitude" in lora:
         # DoRA (arXiv:2402.09353): W' = m * (W0 + s·BA) / ||W0 + s·BA|| per output
         w = p["weight"].float() + (lora["b"].float() @ lora["a"].float()) * scale
@@ -57,17 +65,28 @@ def dense(p: dict, x: torch.Tensor, name: Optional[str] = None) -> torch.Tensor:
     the matmul (ops/checkpoint_names.py), which without LoRA takes the bias
     too, so the name covers one op. The weight's cast (an int8 weight's
     dequantization) stays outside the name: it is never kept.
+
+    A "tp" split: "col" gives this rank's output features (the caller has
+    entered x into the model group); "row" takes this rank's input
+    features and sums the partial outputs over the model group before the
+    bias.
     """
     w = p["weight"].to(x.dtype)
-    if "lora" not in p:
-        bias = p["bias"].to(x.dtype) if "bias" in p else None
+    if w.ndim == 3:  # GEGLU [2, inner, in] (parallel/sharding.py): value rows, then gate
+        w = w.flatten(0, 1)
+    row = "tp" in p and p["tp"].kind == "row"
+    bias = p["bias"].to(x.dtype).reshape(-1) if "bias" in p else None
+    if "lora" not in p and not row:
         with checkpoint_name(name):
             return F.linear(x, w, bias)
     with checkpoint_name(name):
         y = F.linear(x, w)
-    y = _apply_lora_dense(p, x, y)
-    if "bias" in p:
-        y = y + p["bias"].to(x.dtype)
+    if "lora" in p:
+        y = _apply_lora_dense(p, x, y)
+    if row:
+        y = p["tp"].exit(y)
+    if bias is not None:
+        y = y + bias
     return y
 
 

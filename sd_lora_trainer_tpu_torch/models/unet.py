@@ -17,7 +17,8 @@ Names (`attn_out`, `xattn_out`, `ff_hidden`, `flash_out`, `flash_lse`, each
 with its level's `_c{channels}`; a trailing '*' expands over the levels) are
 attached to the ops that produce them (ops/checkpoint_names.py); a kept op is
 not run again in the backward. `stash8` keeps the listed names as row-wise
-int8 (ops/stash8.py). "offload:<names>" is not ported (ROADMAP).
+int8 (ops/stash8.py). "offload:<names>" keeps them in pinned host memory
+instead, and "light+offload:<names>" composes as "light+save:" does.
 """
 
 from __future__ import annotations
@@ -179,6 +180,14 @@ def _transformer_block(
     tag = f"_c{x.shape[-1]}"
     h = layer_norm(p["norm1"], x)
     a1 = p["attn1"]
+    # a tensor-parallel block (parallel/sharding.py): every projection into
+    # the heads and the GEGLU is split by output features, so each rank runs
+    # its own heads, and the inputs enter the model group once
+    tp = a1.get("to_q", {}).get("tp")
+    enter = tp.enter if tp is not None else (lambda t: t)
+    if tp is not None:
+        heads //= tp.group.size
+        h = enter(h)
     if "qkv" in a1:
         # fused layout (models/fuse.py): one matmul; LoRA deltas per slice
         q, k, v = F.linear(h, a1["qkv"]["weight"].to(h.dtype)).chunk(3, dim=-1)
@@ -203,7 +212,9 @@ def _transformer_block(
 
     h = layer_norm(p["norm2"], x)
     a2 = p["attn2"]
-    q = dense(a2["to_q"], h)
+    q = dense(a2["to_q"], enter(h))
+    if tp is not None:
+        ctx = enter(ctx)
     if "kv" in a2:
         k, v = F.linear(ctx, a2["kv"]["weight"].to(ctx.dtype)).chunk(2, dim=-1)
         if "lora" in a2.get("to_k", {}):
@@ -217,13 +228,15 @@ def _transformer_block(
     name = f"xattn_out{tag}"
     attn, scores = multihead_attention(q, k, v, heads, capture_scores=capture,
                                        out_name=_producer_name(name, stash8_names))
+    if scores is not None and tp is not None:
+        scores = tp.exit(scores)  # the head sum over every rank's heads
     if scores is not None and pre_padded:
         scores = scores[:, :pre_padded]  # DAAM consumers need q_len == h*w
     attn = _tag(attn, name, stash8_names)
     x = x + dense(a2["to_out.0"], attn)
 
     # GEGLU feed-forward
-    h = layer_norm(p["norm3"], x)
+    h = enter(layer_norm(p["norm3"], x))
     name = f"ff_hidden{tag}"
     h2 = _tag(dense(p["ff.net.0.proj"], h, name=_producer_name(name, stash8_names)), name,
               stash8_names)
@@ -276,16 +289,14 @@ def _checkpointed(context_fn=None):
 
 def _named_policy_remat(spec: str, cfg: UNetConfig):
     """Named-activation remat: full recompute except the ops that produce the
-    listed names, whose outputs are kept ("save:<names>")."""
+    listed names, whose outputs are kept on the device ("save:<names>") or
+    in pinned host memory ("offload:<names>")."""
     kind, _, raw = spec.partition(":")
-    if kind == "offload":
-        raise NotImplementedError(
-            f"remat={spec!r}: host offload of named activations is not ported "
-            "(a later slice of the port, ROADMAP Queue A, the item \"offload: remat\")"
-        )
-    if kind != "save":
-        raise ValueError(f"unknown named remat policy {spec!r}: expected 'save:<names>'")
-    return _checkpointed(saving_names(frozenset(expand_names(raw, cfg.block_out_channels))))
+    if kind not in ("save", "offload"):
+        raise ValueError(f"unknown named remat policy {spec!r}: expected 'save:<names>' or "
+                         "'offload:<names>'")
+    names = frozenset(expand_names(raw, cfg.block_out_channels))
+    return _checkpointed(saving_names(names, offload=kind == "offload"))
 
 
 # the outputs "dots" keeps: matmuls without batch dims (JAX's
@@ -304,7 +315,7 @@ def _remat_wrappers(remat, cfg: UNetConfig):
     def keep(f):
         return f
 
-    if isinstance(remat, str) and remat.startswith("light+"):
+    if isinstance(remat, str) and remat.startswith(("light+save:", "light+offload:")):
         # plain resnet layers keep all activations, attention layers the named ones
         return _named_policy_remat(remat.partition("+")[2], cfg), keep
     if isinstance(remat, str) and remat.startswith(("save:", "offload:")):
@@ -320,7 +331,7 @@ def _remat_wrappers(remat, cfg: UNetConfig):
         # a typo'd plan silently running full remat would mislead a measurement
         raise ValueError(
             f"unknown remat policy {remat!r}: expected True/False, 'light', 'dots', "
-            "'save:<names>', 'light+save:<names>'"
+            "'save:<names>', 'offload:<names>', 'light+save:<names>', 'light+offload:<names>'"
         )
     if remat:
         wrap = _checkpointed()
@@ -339,11 +350,17 @@ def unet_forward(
     use_flash: bool = True,
     remat=True,
     stash8: str = "",  # comma list of names kept as row-wise int8 (ops/stash8.py)
+    gather=None,  # fsdp: param subtree -> whole tensors (parallel/sharding.py)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Predict noise. Returns (eps_pred [B,H,W,4], attn_scores dict).
 
     attn_scores holds, with capture_attn=True, the head-summed scaled QK^T
     logits of every down/up-block cross-attention (the mid block is skipped).
+
+    `gather` (fsdp) turns a subtree of parameter shards into whole tensors:
+    each down/mid/up layer gathers its own, in one collective, inside its
+    remat region, so the recompute gathers again and no whole weight
+    outlives its layer there.
     """
     ctx = encoder_hidden_states
     groups = cfg.norm_num_groups
@@ -358,9 +375,10 @@ def unet_forward(
     else:
         stash8_names = frozenset()
     maybe_remat, remat_plain = _remat_wrappers(remat, cfg)
+    P = gather if gather is not None else (lambda tree: tree)
 
     t_emb = timestep_embedding(timesteps, cfg.block_out_channels[0])
-    te = params["time_embedding"]
+    te = P(params["time_embedding"])
     temb = dense(te["linear_2"], silu(dense(te["linear_1"], t_emb)))
     if cfg.addition_embed_dim is not None:
         if added_cond is None:
@@ -368,11 +386,11 @@ def unet_forward(
         add_t = timestep_embedding(added_cond["time_ids"].reshape(-1), cfg.addition_embed_dim)
         add_t = add_t.reshape(temb.shape[0], -1)
         add_emb = torch.cat([added_cond["text_embeds"].to(add_t.dtype), add_t], dim=-1)
-        ae = params["add_embedding"]
+        ae = P(params["add_embedding"])
         temb = temb + dense(ae["linear_2"], silu(dense(ae["linear_1"], add_emb)))
     temb = temb.to(latents.dtype)
 
-    x = conv2d(params["conv_in"], latents, padding=1)
+    x = conv2d(P(params["conv_in"]), latents, padding=1)
     skips = [x]
     attn_scores: Dict[str, torch.Tensor] = {}
 
@@ -387,6 +405,7 @@ def unet_forward(
             def down_layer(layer_params, x, temb, ctx, i=i, has_attn=has_attn,
                            name=f"down_blocks.{i}.attentions.{j}"):
                 scores = {}
+                layer_params = P(layer_params)
                 x = _resnet(layer_params["resnet"], x, temb, groups)
                 if has_attn:
                     x, scores = _spatial_transformer(
@@ -400,11 +419,12 @@ def unet_forward(
             attn_scores.update(scores)
             skips.append(x)
         if "downsamplers" in bp:
-            x = conv2d(bp["downsamplers"][0]["conv"], x, stride=2, padding=1)
+            x = conv2d(P(bp["downsamplers"][0]["conv"]), x, stride=2, padding=1)
             skips.append(x)
 
     def mid_fn(mid, x, temb, ctx):
         scores = {}
+        mid = P(mid)
         x = _resnet(mid["resnets"][0], x, temb, groups)
         if "attentions" in mid:
             x, scores = _spatial_transformer(
@@ -429,6 +449,7 @@ def unet_forward(
             def up_layer(layer_params, x, skip, temb, ctx, level=level, has_attn=has_attn,
                          name=f"up_blocks.{i}.attentions.{j}"):
                 scores = {}
+                layer_params = P(layer_params)
                 x = torch.cat([x, skip], dim=-1)
                 x = _resnet(layer_params["resnet"], x, temb, groups)
                 if has_attn:
@@ -442,9 +463,10 @@ def unet_forward(
             x, scores = wrap(up_layer)(layer_params, x, skips.pop(), temb, ctx)
             attn_scores.update(scores)
         if "upsamplers" in bp:
-            x = conv2d(bp["upsamplers"][0]["conv"], upsample_nearest_2x(x), padding=1)
+            x = conv2d(P(bp["upsamplers"][0]["conv"]), upsample_nearest_2x(x), padding=1)
 
-    x = conv2d(params["conv_out"], silu(group_norm(params["conv_norm_out"], x, groups)), padding=1)
+    x = conv2d(P(params["conv_out"]), silu(group_norm(P(params["conv_norm_out"]), x, groups)),
+               padding=1)
     return x, attn_scores
 
 

@@ -22,6 +22,12 @@ of an eager, host-bound step. Keep each scope to the producing op, so that a
 weight cast or a copy before it is not kept as well. A scope may carry
 several names that must all be listed, as the flash op's two outputs do
 (`flash_out`, `flash_lse`). Outside such a region a scope has no effect.
+
+`saving_names(names, offload=True)` is the "offload:" plan: the kept
+outputs are copied to pinned host memory (non-blocking, on a side stream)
+and the device copies are freed with the forward; the recompute copies
+them back to the device. A CPU tensor is copied to fresh host memory: there
+is no device memory to free.
 """
 
 from __future__ import annotations
@@ -38,6 +44,43 @@ from torch.utils._pytree import tree_map_only
 _STATE = threading.local()
 
 
+class _Offloaded:
+    """A host copy of a device tensor, and the event that ends the copy."""
+
+    def __init__(self, t: torch.Tensor):
+        self.device = t.device
+        if not t.is_cuda:
+            self.host, self.event = t.detach().clone(), None
+            return
+        self.host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        stream = _side_stream(t.device)
+        stream.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(stream):
+            self.host.copy_(t.detach(), non_blocking=True)
+            self.event = torch.cuda.Event()
+            self.event.record(stream)
+        t.record_stream(stream)  # the allocator keeps t until the copy ends
+
+    def restore(self) -> torch.Tensor:
+        if self.event is None:
+            return self.host
+        torch.cuda.current_stream(self.device).wait_event(self.event)
+        return self.host.to(self.device, non_blocking=True)
+
+
+_SIDE_STREAMS: dict = {}
+
+
+def _side_stream(device) -> "torch.cuda.Stream":
+    if device not in _SIDE_STREAMS:
+        _SIDE_STREAMS[device] = torch.cuda.Stream(device)
+    return _SIDE_STREAMS[device]
+
+
+def _restore(x):
+    return x.restore() if isinstance(x, _Offloaded) else x
+
+
 class _Keep(TorchDispatchMode):
     """Run each op and keep its outputs (detached: they hold no graph)."""
 
@@ -45,15 +88,26 @@ class _Keep(TorchDispatchMode):
         super().__init__()
         self.kept = kept
 
+    def _keep(self, t: torch.Tensor):
+        return t.detach()
+
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         out = func(*args, **(kwargs or {}))
         if not func.is_view:
-            self.kept.append(tree_map_only(torch.Tensor, torch.Tensor.detach, out))
+            self.kept.append(tree_map_only(torch.Tensor, self._keep, out))
         return out
 
 
+class _KeepOnHost(_Keep):
+    """`_Keep` whose kept outputs are host copies (the "offload:" plans)."""
+
+    def _keep(self, t: torch.Tensor):
+        return _Offloaded(t)
+
+
 class _Replay(TorchDispatchMode):
-    """Hand back the kept outputs in the order `_Keep` kept them; views run."""
+    """Hand back the kept outputs in the order `_Keep` kept them (offloaded
+    ones copied back to their device); views run."""
 
     def __init__(self, kept: collections.deque):
         super().__init__()
@@ -62,7 +116,8 @@ class _Replay(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         if func.is_view:
             return func(*args, **(kwargs or {}))
-        return self.kept.popleft()
+        kept = self.kept.popleft()
+        return tuple(_restore(x) for x in kept) if isinstance(kept, tuple) else _restore(kept)
 
 
 @contextlib.contextmanager
@@ -75,13 +130,15 @@ def _plan(names: FrozenSet[str], mode: TorchDispatchMode):
         _STATE.plan = prev
 
 
-def saving_names(names: FrozenSet[str]) -> Callable[[], Tuple]:
+def saving_names(names: FrozenSet[str], offload: bool = False) -> Callable[[], Tuple]:
     """`context_fn` for `torch.utils.checkpoint(use_reentrant=False)`: the
-    region keeps the outputs of the ops named by a subset of `names`."""
+    region keeps the outputs of the ops named by a subset of `names`, in
+    pinned host memory with `offload`."""
 
     def context_fn():
         kept: collections.deque = collections.deque()
-        return _plan(names, _Keep(kept)), _plan(names, _Replay(kept))
+        keep = _KeepOnHost(kept) if offload else _Keep(kept)
+        return _plan(names, keep), _plan(names, _Replay(kept))
 
     return context_fn
 

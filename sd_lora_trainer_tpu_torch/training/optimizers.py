@@ -119,8 +119,11 @@ class AdamW:
             self.opt.state[p] = {k: v if v.ndim == 0 else v.to(p.device) for k, v in entry.items()}
 
 
-def build_group_optimizer(config: TrainingConfig, name: str, params: List[torch.Tensor]):
-    """The optimizer of group `name` ("unet", "ti" or "te_lora")."""
+def build_group_optimizer(config: TrainingConfig, name: str, params: List[torch.Tensor],
+                          total=None):
+    """The optimizer of group `name` ("unet", "ti" or "te_lora"). `total`
+    sums a tensor over the ranks that hold shards of the group (fsdp): what
+    Prodigy's sums over every tensor need; elementwise updates need none."""
     wd = {
         "unet": config.lora_weight_decay if not config.use_dora else 0.0,
         "ti": config.ti_weight_decay,
@@ -130,7 +133,7 @@ def build_group_optimizer(config: TrainingConfig, name: str, params: List[torch.
                    use_bias_correction=True, decouple=True)
     if name == "unet" and config.unet_optimizer_type == "prodigy":
         return Prodigy(params, d_coef=config.prodigy_d_coef,
-                       growth_rate=config.unet_prodigy_growth_factor, **prodigy)
+                       growth_rate=config.unet_prodigy_growth_factor, total=total, **prodigy)
     if name == "unet" and config.unet_optimizer_type == "AdamW8bit":
         return AdamW8bit(params, weight_decay=wd)
     if name == "ti" and config.ti_optimizer == "prodigy":
@@ -139,9 +142,10 @@ def build_group_optimizer(config: TrainingConfig, name: str, params: List[torch.
 
 
 class GroupOptimizer:
-    """One optimizer per trainable group, each at its own schedule."""
+    """One optimizer per trainable group, each at its own schedule.
+    `totals` maps a sharded group to its sum over the ranks (fsdp)."""
 
-    def __init__(self, config: TrainingConfig, trainable: dict):
+    def __init__(self, config: TrainingConfig, trainable: dict, totals: Optional[dict] = None):
         schedules = {
             "unet": unet_lr_schedule(config),
             "ti": ti_lr_schedule(config),
@@ -153,7 +157,8 @@ class GroupOptimizer:
             if name not in trainable:
                 continue
             self.schedules[name] = schedules[name]
-            self.groups[name] = build_group_optimizer(config, name, group_tensors(trainable[name]))
+            self.groups[name] = build_group_optimizer(config, name, group_tensors(trainable[name]),
+                                                      (totals or {}).get(name))
         self.count = 0
 
     def params(self) -> List[torch.Tensor]:

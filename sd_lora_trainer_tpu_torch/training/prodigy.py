@@ -38,8 +38,12 @@ class Prodigy:
         safeguard_warmup: bool = True,
         use_bias_correction: bool = True,
         decouple: bool = True,
+        total=None,
     ):
         self.params = list(params)
+        # fsdp: the group's tensors are shards, and its two sums over every
+        # tensor are summed over the data group too (parallel/sharding.py)
+        self.total = total if total is not None else (lambda t: t)
         self.lr = lr
         self.beta1, self.beta2 = betas
         self.beta3 = beta3 if beta3 is not None else self.beta2**0.5
@@ -80,7 +84,7 @@ class Prodigy:
         # the numerator: a beta3-decayed sum of (d / d0) * dlr * <g, p0 - p>
         prods = torch._foreach_sub(self.p0, p32)
         torch._foreach_mul_(prods, grads)
-        dot = sum(t.sum() for t in prods)
+        dot = self.total(sum(t.sum() for t in prods))
         d_numerator = self.d_numerator * b3 + (d / d0) * dlr * dot
 
         torch._foreach_mul_(self.exp_avg, b1)
@@ -92,7 +96,7 @@ class Prodigy:
         s_coef = (d / d0) * (d if self.safeguard_warmup else dlr)
         torch._foreach_mul_(self.s, b3)
         torch._foreach_add_(self.s, torch._foreach_mul(grads, s_coef))
-        d_denom = sum(torch._foreach_norm(self.s, 1))
+        d_denom = self.total(sum(torch._foreach_norm(self.s, 1)))
 
         d_hat = self.d_coef * d_numerator / torch.clamp(d_denom, min=1e-30)
         # while d is still d0 it takes d_hat at once; afterwards it grows by

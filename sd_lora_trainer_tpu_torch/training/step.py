@@ -14,7 +14,12 @@ update per group.
   optional explicit tensors and draws the missing ones from a
   `torch.Generator`;
 - gradient accumulation: batch tensors carry a leading [accum] dim; the
-  gradients and aux terms are averaged over the micro-batches.
+  gradients and aux terms are averaged over the micro-batches;
+- parallel training (`StepConfig.parallel`, parallel/sharding.py): the step
+  takes the global batch and keeps this rank's rows; every rank draws the
+  global batch's noise from the same generator and keeps its rows, so the
+  streams are those of one process; the losses' batch-level statistics are
+  the data group's; the gradients are synced before the update.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from sd_lora_trainer_tpu_torch.models.clip import CLIPTextConfig
 from sd_lora_trainer_tpu_torch.models.conditioning import sd15_conditioning, sdxl_conditioning
 from sd_lora_trainer_tpu_torch.models.lora import inject_lora, iter_lora_leaves
 from sd_lora_trainer_tpu_torch.models.unet import UNetConfig, unet_forward
+from sd_lora_trainer_tpu_torch.parallel.distributed import local_rows
 from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer, group_tensors
 
 
@@ -93,6 +99,9 @@ class StepConfig:
     # set by quantize_base "int8+te", whose dequantized TE weights would
     # otherwise stay alive from forward to backward
     remat_te: bool = False
+    # the mesh a multi-process step runs under (parallel/sharding.py
+    # ParallelPlan); None on one process
+    parallel: Any = None
 
     @classmethod
     def from_config(cls, config: TrainingConfig, img_ratio: float) -> "StepConfig":
@@ -116,11 +125,6 @@ class StepConfig:
                 remat = "light+save:flash_out*,flash_lse*"
             else:
                 remat = "save:flash_out*,flash_lse*"
-        elif isinstance(remat, str) and "offload:" in remat:
-            raise NotImplementedError(
-                f"remat={remat!r}: host offload of named activations is a later slice of "
-                "the port (ROADMAP Queue A, the item \"offload: remat\")"
-            )
         return cls(
             snr_gamma=config.snr_gamma,
             noise_offset=config.noise_offset,
@@ -171,15 +175,29 @@ def compute_loss(
     offset_noise: Optional[torch.Tensor] = None,
     timesteps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One micro-batch loss with every reference term."""
+    """One micro-batch loss with every reference term.
+
+    Under `sc.parallel` the batch is this rank's rows; draws are made (or
+    given) in the global batch's shape and this rank's rows kept."""
     mean, logvar = batch["latent_mean"], batch["latent_logvar"]
     device = mean.device
+    par = sc.parallel
+    n_data = par.n_data if par is not None else 1
+    group = par.batch if par is not None else None
+
+    def rows(t):
+        """This rank's rows of a global-batch tensor (a local one passes)."""
+        if n_data > 1 and t.shape[0] == mean.shape[0] * n_data:
+            return par.local_rows(t)
+        return t
 
     def draw(shape, dtype):
-        return torch.randn(shape, generator=generator, dtype=dtype, device=device)
+        shape = (shape[0] * n_data,) + tuple(shape[1:])
+        return rows(torch.randn(shape, generator=generator, dtype=dtype, device=device))
 
     if latent_eps is None:
         latent_eps = draw(mean.shape, torch.float32)
+    latent_eps = rows(latent_eps)
     std = torch.exp(0.5 * logvar.float())
     latent = ((mean.float() + std * latent_eps.float()) * batch["latent_scale"]).to(mean.dtype)
 
@@ -211,15 +229,17 @@ def compute_loss(
 
     if noise is None:
         noise = draw(latent.shape, latent.dtype)
-    noise = noise.to(latent.dtype)
+    noise = rows(noise).to(latent.dtype)
     if sc.noise_offset > 0.0:
         b, _, _, c = latent.shape
         if offset_noise is None:
             offset_noise = draw((b, 1, 1, c), latent.dtype)
-        noise = noise + sc.noise_offset * offset_noise.to(latent.dtype)
+        noise = noise + sc.noise_offset * rows(offset_noise).to(latent.dtype)
     if timesteps is None:
-        timesteps = torch.randint(0, frozen.schedule.num_train_timesteps, (latent.shape[0],),
-                                  generator=generator, device=device)
+        timesteps = rows(torch.randint(0, frozen.schedule.num_train_timesteps,
+                                       (latent.shape[0] * n_data,), generator=generator,
+                                       device=device))
+    timesteps = rows(timesteps)
     noisy_latent = frozen.schedule.add_noise(latent, noise, timesteps)
 
     capture = sc.train_ti and sc.token_attention_loss_w > 0.0
@@ -227,18 +247,19 @@ def compute_loss(
         _unet_params_with_adapters(frozen, trainable, sc), noisy_latent, timesteps,
         prompt_embeds, frozen.unet_config, added_cond=added_cond, capture_attn=capture,
         use_flash=sc.use_flash, remat=sc.remat, stash8=sc.stash8,
+        gather=par.gather if par is not None and par.fsdp is not None else None,
     )
 
     mask = batch["mask"]
     img_loss = diffusion_loss(model_pred, noise, noisy_latent, latent, mask, frozen.schedule,
-                              timesteps, sc.snr_gamma)
+                              timesteps, sc.snr_gamma, group=group)
     loss = img_loss
     aux: Dict[str, torch.Tensor] = {"img_loss": img_loss}
 
     if capture:
         attn_loss = token_attention_loss(
             attn_scores, mask, sc.daam_img_ratio, batch["caption_token_lengths"],
-            batch["ti_token_positions"],
+            batch["ti_token_positions"], group=group,
         )
         loss = loss + sc.token_attention_loss_w * attn_loss
         aux["token_attention_loss"] = attn_loss
@@ -253,7 +274,7 @@ def compute_loss(
         ti_active = 0.0 if step / sc.max_train_steps > sc.ti_freeze_f else 1.0
         if sc.cond_reg_w > 0.0:
             reg, observed = prompt_norm_regularization(
-                prompt_embeds, TARGET_PROMPT_NORM[frozen.version]
+                prompt_embeds, TARGET_PROMPT_NORM[frozen.version], group=group
             )
             loss = loss + ti_active * sc.cond_reg_w * reg
             aux["prompt_norm"] = observed
@@ -285,30 +306,49 @@ def make_train_step(sc: StepConfig):
     `batch` tensors carry a leading [accum] dim (0-dim tensors ride through);
     `draws` optionally holds one dict of explicit compute_loss draws per
     micro-batch. The step averages loss and gradients over the micro-batches,
-    applies one optimizer update in place and advances `state.step`.
+    applies one optimizer update in place and advances `state.step`. Under
+    `sc.parallel` the batch and draws are the global batch's.
     """
 
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor], frozen: FrozenModels,
                    draws: Optional[List[dict]] = None) -> Dict[str, torch.Tensor]:
-        state.optimizer.zero_grad()
-        aux_sum: Dict[str, torch.Tensor] = {}
-        for i in range(sc.grad_accum):
-            mb = {k: (v[i] if v.ndim > 0 else v) for k, v in batch.items()}
-            loss, aux = compute_loss(
-                state.trainable, frozen, sc, mb, state.step, state.generator,
-                **(draws[i] if draws else {}),
-            )
-            (loss / sc.grad_accum).backward()
-            for k, v in aux.items():
-                aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
-        metrics = {k: v / sc.grad_accum for k, v in aux_sum.items()}
-        grads = [t.grad for t in group_tensors(state.trainable) if t.grad is not None]
-        metrics["grad_norm"] = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        metrics = accumulate_grads(sc, state, batch, frozen, draws)
         state.optimizer.step()
         state.step += 1
         return metrics
 
     return train_step
+
+
+def accumulate_grads(sc: StepConfig, state: TrainState, batch: Dict[str, torch.Tensor],
+                     frozen: FrozenModels, draws: Optional[List[dict]] = None
+                     ) -> Dict[str, torch.Tensor]:
+    """The step up to the update: the trainables' .grad from every
+    micro-batch (synced across the mesh), and the step's metrics."""
+    par = sc.parallel
+    if par is not None:  # this rank's rows of the [accum, B, ...] global batch
+        batch = local_rows(batch, par.n_data, par.mesh.data_rank)
+    state.optimizer.zero_grad()
+    aux_sum: Dict[str, torch.Tensor] = {}
+    for i in range(sc.grad_accum):
+        mb = {k: (v[i] if v.ndim > 0 else v) for k, v in batch.items()}
+        loss, aux = compute_loss(
+            state.trainable, frozen, sc, mb, state.step, state.generator,
+            **(draws[i] if draws else {}),
+        )
+        (loss / sc.grad_accum).backward()
+        for k, v in aux.items():
+            aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
+    metrics = {k: v / sc.grad_accum for k, v in aux_sum.items()}
+    tensors = group_tensors(state.trainable)
+    if par is None:
+        grads = [t.grad for t in tensors if t.grad is not None]
+        metrics["grad_norm"] = torch.sqrt(sum(g.float().pow(2).sum() for g in grads))
+        return metrics
+    par.sync_grads(tensors)
+    metrics = par.average_metrics(metrics)
+    metrics["grad_norm"] = torch.sqrt(par.grad_sq_sum(tensors))
+    return metrics
 
 
 def run_steps(train_step, state: TrainState, batches, frozen: FrozenModels,

@@ -18,6 +18,7 @@ import torch
 from sd_lora_trainer_tpu.config import TrainingConfig as JConfig
 from sd_lora_trainer_tpu.training import optimizers as jo
 from sd_lora_trainer_tpu_torch.config import TrainingConfig as TConfig
+from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG, _remat_wrappers
 from sd_lora_trainer_tpu_torch.training import optimizers as to
 from sd_lora_trainer_tpu_torch.training.step import StepConfig
 
@@ -56,10 +57,14 @@ def _cfg(**kw):
     {"remat": "light+offload:flash_out*,flash_lse*", "sd_model_version": "sd15"},
 ])
 def test_later_slice_options_raise(kw):
-    """Host offload of named activations (`offload:`) is the one remat plan
-    left for a later slice; int8, the named plans and stash8 are ported."""
-    with pytest.raises(NotImplementedError, match="later slice"):
-        StepConfig.from_config(_cfg(**kw), 1.0)
+    """Host offload of named activations (`offload:`, alone or after
+    "light+") resolves as the plan it names, on either base and model, as
+    the "save:" plans do (it ran as a later slice's option; models/unet.py
+    builds it)."""
+    sc = StepConfig.from_config(_cfg(**kw), 1.0)
+    assert sc.remat == kw["remat"]
+    wrap, plain = _remat_wrappers(sc.remat, TINY_SDXL_UNET_CONFIG)
+    assert callable(wrap) and callable(plain)
 
 
 @pytest.mark.parametrize("kw,kinds", [

@@ -1,6 +1,7 @@
 """The port and chip_smoke.py import neither jax nor the JAX package.
 
 Checked twice: in a fresh interpreter that imports every module of the port
+(parallel/ included: it uses torch.distributed, never jax.distributed)
 and chip_smoke.py (sys.modules must then hold no jax, no
 sd_lora_trainer_tpu and no safetensors), and by scanning their sources'
 import statements. The port builds only sources of its own csrc/ (the
@@ -38,7 +39,8 @@ def test_port_modules_exist():
                  "data.captioners", "data.face_masks", "data.super_resolution",
                  "inference", "main", "utils.utils", "utils.val_prompts", "utils.plots",
                  "training.prodigy", "training.quantized_adam", "training.token_warmup",
-                 "predict", "node", "comfyui_init"):
+                 "predict", "node", "comfyui_init", "parallel.sharding",
+                 "parallel.distributed"):
         assert f"sd_lora_trainer_tpu_torch.{name}" in mods
 
 

@@ -19,7 +19,7 @@
 - the TI warmup runs on a description the config supplies; Prodigy and a
   full finetune under AdamW8bit with sharding_mode "fsdp" train and resume
   bit-equal;
-- what later slices port raises `NotImplementedError` naming its item.
+- the sharding checks place a run on its mesh or refuse it, as JAX's do.
 """
 
 import json
@@ -158,10 +158,10 @@ def test_resume_continues_the_run_exactly(env, monkeypatch):
     saved = {}
     real_save = tmain.save_train_state
 
-    def keep_each(path, state):
-        real_save(path, state)
+    def keep_each(path, state, plan=None, whole=None):
+        real_save(path, state, plan, whole)
         saved[state.step] = path + f".{state.step}"
-        real_save(saved[state.step], state)
+        real_save(saved[state.step], state, plan, whole)
 
     monkeypatch.setattr(tmain, "save_train_state", keep_each)
     kw = dict(max_train_steps=4, checkpointing_steps=2, steps_per_call=1, save_train_state=True,
@@ -307,16 +307,27 @@ def test_bucketed_draws_drop_nothing():
     assert leaders == list(range(2, 200, 2)) and not draws.pending
 
 
-@pytest.mark.parametrize("kw", [{"sharding_mode": "tp"}, {"sharding_mode": "fsdp", "WORLD_SIZE": "2"},
-                                {"mesh_data_parallel": 2}, {"WORLD_SIZE": "2"}])
-def test_later_slices_raise(env, monkeypatch, kw):
-    """More than one process, tp and meshes are a later slice ("fsdp" on one
-    process trains: test_resume_is_exact_under_each_optimizer)."""
-    if "WORLD_SIZE" in kw:
-        monkeypatch.setenv("WORLD_SIZE", kw.pop("WORLD_SIZE"))
+@pytest.mark.parametrize("kw,world,want", [
+    ({"sharding_mode": "tp"}, 1, "falling back to dp"),
+    ({"sharding_mode": "fsdp", "is_lora": False}, 2, ("fsdp", 2, 1)),
+    ({"mesh_data_parallel": 2}, 1, ValueError("needs as many processes")),
+    ({"train_batch_size": 3}, 2, ValueError("multi-process run needs a device mesh")),
+])
+def test_later_slices_raise(env, capsys, kw, world, want):
+    """More than one process, tp and meshes were a later slice; now the
+    JAX package's checks place a run on its mesh (`resolve_sharding`): tp on
+    one device falls back to dp with JAX's printed line, fsdp on two
+    processes shards over a data group of 2, a mesh wider than the processes
+    and a global batch that does not divide them raise."""
     config = TConfig(**_cfg(env, device="cpu", **kw))
-    with pytest.raises(NotImplementedError, match="Parallelism"):
-        next(tmain.train(config))
+    if isinstance(want, Exception):
+        with pytest.raises(type(want), match=str(want)):
+            tmain.resolve_sharding(config, world)
+    elif isinstance(want, str):
+        assert tmain.resolve_sharding(config, world) is None
+        assert want in capsys.readouterr().out
+    else:
+        assert tmain.resolve_sharding(config, world) == want
 
 
 def test_warmup_runs_on_a_supplied_description(env, monkeypatch):
@@ -362,10 +373,10 @@ def test_resume_is_exact_under_each_optimizer(env, monkeypatch, name, kw):
     saved = {}
     real_save = tmain.save_train_state
 
-    def keep_each(path, state):
-        real_save(path, state)
+    def keep_each(path, state, plan=None, whole=None):
+        real_save(path, state, plan, whole)
         saved[state.step] = path + f".{state.step}"
-        real_save(saved[state.step], state)
+        real_save(saved[state.step], state, plan, whole)
 
     monkeypatch.setattr(tmain, "save_train_state", keep_each)
     base = dict(max_train_steps=4, checkpointing_steps=2, steps_per_call=1, save_train_state=True,

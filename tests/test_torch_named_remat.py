@@ -14,8 +14,10 @@ parameter. Checked, as tests/test_named_remat.py checks the JAX plans:
   under `save:attn_out*,ff_hidden*` than under full remat, and the flash op
   runs once per block under `save:flash_out*,flash_lse*` (twice under full
   remat), counted with the flash gate opened for CPU tensors;
-- `offload:` is not ported and raises NotImplementedError; an unknown plan
-  raises ValueError.
+- `offload:<names>` (and `light+offload:`) keeps the named outputs as host
+  copies between the forward and the backward and gives the gradients of
+  `save:` with the same names, bit for bit (the copies are exact); an
+  unknown plan raises ValueError.
 """
 
 import jax
@@ -26,6 +28,7 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 
 import sd_lora_trainer_tpu_torch.ops.attention as t_attention
+import sd_lora_trainer_tpu_torch.ops.checkpoint_names as cn
 import sd_lora_trainer_tpu_torch.ops.flash_attention as fa
 from sd_lora_trainer_tpu.models import unet as j_unet
 from sd_lora_trainer_tpu_torch.interop import from_jax_params
@@ -200,9 +203,46 @@ def test_saved_flash_residuals_skip_the_forward_kernel(tiny, full_remat_grads, m
 
 
 @pytest.mark.parametrize("remat,error", [
-    ("offload:flash_out*", NotImplementedError), ("light+offload:ff_hidden*", NotImplementedError),
+    ("offload:flash_out*", None), ("light+offload:ff_hidden*", None),
     ("save", ValueError), ("heavy", ValueError), ("light+keep:ff_hidden*", ValueError),
 ])
 def test_offload_and_unknown_plans_raise(tiny, remat, error):
-    with pytest.raises(error):
-        _port_loss(tiny, remat)
+    """An unknown plan raises; the offload plans run and give the `save:`
+    plan's gradients for the same names."""
+    if error is not None:
+        with pytest.raises(error):
+            _port_loss(tiny, remat)
+        return
+    got, want = port_grads(tiny, remat), port_grads(tiny, remat.replace("offload:", "save:"))
+    assert sorted(got) == sorted(want)
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_offload_keeps_host_copies(tiny, monkeypatch):
+    """Between the forward and the backward the offloaded names are host
+    copies that share no storage with the forward's outputs (pinned when
+    the outputs are on a CUDA device: chip_smoke.py's offload phase checks
+    that); the backward copies each back once, and the gradients equal
+    `save:`'s."""
+    made = []
+    real = cn._Offloaded
+
+    class Spy(real):
+        def __init__(self, t):
+            super().__init__(t)
+            made.append((self, t.untyped_storage().data_ptr()))
+
+    monkeypatch.setattr(cn, "_Offloaded", Spy)
+    plan = "offload:attn_out*,ff_hidden*"
+    loss, params = _port_loss(tiny, plan)
+    assert len(made) == 2 * 10  # attn_out and ff_hidden of the tiny UNet's 10 blocks
+    for kept, src in made:
+        assert kept.host.device.type == "cpu" and kept.host.untyped_storage().data_ptr() != src
+        assert kept.host.is_pinned() == (kept.device.type == "cuda")
+    restored = []
+    monkeypatch.setattr(Spy, "restore", lambda self: restored.append(self) or real.restore(self))
+    loss.backward()
+    assert sorted(map(id, restored)) == sorted(id(k) for k, _ in made)
+    want = port_grads(tiny, plan.replace("offload:", "save:"))
+    got = {k: v.grad for k, v in _flat(params).items()}
+    assert all(torch.equal(got[k], want[k]) for k in want)
