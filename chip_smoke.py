@@ -69,20 +69,35 @@ fatal on failure (the script exits non-zero and prints no result):
    gloo (2 rows a rank); "tp2", LoRA+TI on a bf16 unfused base with the
    frozen UNet split over a model group of 2 (the flash kernels on each
    rank's 5 and 10 heads); "fsdp2", the full finetune of phase 6 sharded
-   over 2 ranks, 2 steps under AdamW and 2 under AdamW8bit. Rank 0 then runs
+   over 2 ranks, 2 steps under AdamW and 2 under AdamW8bit (tp2 and fsdp2
+   at SDXL's widths with its depth cut, PARALLEL_CUT_DEPTH). Rank 0 then runs
    the same steps on one process, twice: the first step's gradients must
    agree within PARALLEL_GRAD_TOL, every step's loss within
    PARALLEL_LOSS_TOL, and the update within PARALLEL_UPDATE_FACTOR times
    the two one-process runs' own difference;
    every rank prints s/step, peak memory, collective calls and bytes by
-   kind (> 0 on the 2-rank runs) and flash launches (> 0 for both kernels).
+   kind (> 0 on the 2-rank runs) and flash launches (> 0 for both kernels);
+9. tools (run before phase 8): the port's measurement tools as a user runs
+   them, each a `python -m` subprocess: the bench at its defaults (SDXL
+   1024px bs=8, K=4: exactly one JSON line, value > 0, 0 < mfu <= 1, 70/70
+   flash launches a step), then bucketed (bs=4, 1024x1024 and 832x1216: the
+   ragged full-width step, s/step per bucket); the model FLOP count at
+   1024px bs=1 through the flash ops' formulas against plain attention's
+   matmuls (within FLOP_TOL); the render bench (1024px, 25 steps, batch 4:
+   s/img, 1750 flash_fwd a call); profile_step over 2 bench steps, its
+   family table against `--summarize` of its exported trace (within
+   PROFILE_TOL); the seeded tiny convergence run (the JAX recipe at 128px,
+   cut to CONVERGENCE_STEPS steps: both quality trends improved, the loss
+   drop beside the JAX run's).
 After phase 5 an offload check runs on the trained state: one LoRA+TI loss
 and backward under `offload:flash_out*,flash_lse*` against
 `save:flash_out*,flash_lse*` (gradients within 1e-3, the kept tensors in
 pinned host memory, the peak below save:'s; s/step of each).
 It then prints the `kernels` JSON line (launches from the cli run, by path
 in `launches_by_path`: the train plans, the optim phase's paths, the cli
-run and rank 0 of each parallel run), the nvidia-smi line, and as the last line the result object.
+run, the tools of phase 9 and rank 0 of each parallel run), the nvidia-smi
+line, and as the last line the result object. A `[time]` line after each
+phase gives the seconds since the start.
 """
 
 from __future__ import annotations
@@ -103,8 +118,6 @@ from typing import Optional
 
 import torch
 
-PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16
-PEAK_BYTES = 3.35e12  # H100 SXM HBM3
 KERNEL_TOL = 2e-2  # max |kernel - plain| <= KERNEL_TOL * max |plain| (bf16 P and dS)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 TRAIN_CONFIG = os.path.join(ROOT, "train_configs", "training_args_style_sdxl.json")
@@ -201,6 +214,8 @@ def _work(name: str, b: int, h: int, lp: int, valid: int, d: int) -> tuple:
 
 
 def _bound_ms(flops: float, nbytes: float) -> tuple:
+    from sd_lora_trainer_tpu_torch.utils.profiling import PEAK_BF16_FLOPS, PEAK_BYTES
+
     t_ops, t_bytes = flops / PEAK_BF16_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -325,7 +340,7 @@ def phase_reference():
     zero, so the loss is about mean(noise^2) and does not see the attention
     outputs (it agrees to the last bit)."""
     from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
-    from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG
+    from sd_lora_trainer_tpu_torch.models.synthesize import TINY_FLASH_SDXL_UNET_CONFIG
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
     from sd_lora_trainer_tpu_torch.training.step import StepConfig
 
@@ -333,9 +348,8 @@ def phase_reference():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     # head dim 64, so the flash kernels take every level (1024 and 256 tokens)
-    cfg = dataclasses.replace(TINY_SDXL_UNET_CONFIG, block_out_channels=(64, 128, 128),
-                              num_heads=(1, 2, 2))
-    cpu = _build_run(cfg, "cpu", torch.float32, batch=2, latent_hw=64, rank=4, fuse=True)
+    cpu = _build_run(TINY_FLASH_SDXL_UNET_CONFIG, "cpu", torch.float32, batch=2, latent_hw=64,
+                     rank=4, fuse=True)
     g = torch.Generator().manual_seed(2)
     shape = tuple(cpu["batch"]["latent_mean"].shape[1:])
     draws = {"latent_eps": torch.randn(shape, generator=g), "noise": torch.randn(shape, generator=g),
@@ -568,49 +582,20 @@ def _train_plan(run, plan: str, default):
 def _profile_step(train_step, run, expected) -> dict:
     """One more step under torch.profiler: its device kernel seconds, kernel
     count and ms by kernel family (the flash family split by kernel)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.utils.profiling import profile_device
 
     before = dict(fa.LAUNCHES)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t = time.perf_counter()
-        train_step(run["state"], run["batch"], run["frozen"])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t
+    wall, table = profile_device(lambda: train_step(run["state"], run["batch"], run["frozen"]),
+                                 torch.device("cuda"))
     counts = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
     check(counts == expected, f"profiled step: launches {counts} != {expected}")
-    # device kernels only: user annotations (e.g. Optimizer.step) span kernels
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and not getattr(e, "is_user_annotation", False) and "#" not in e.key
-              and e.self_device_time_total > 0]
-    check(bool(events), "the profiler recorded no device time")
-    kernels = [(e.key, e.self_device_time_total) for e in events]
-    n_launched = sum(e.count for e in events)
-    families = {"flash": 0.0, "conv": 0.0, "gemm": 0.0, "other": 0.0}
-    words = {
-        "flash": ("flash_fwd_kernel", "flash_bwd_kernel", "flash_bwd_dq_convert_kernel"),
-        "conv": ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn"),
-        "gemm": ("gemm", "nvjet", "xmma", "cutlass", "matmul"),
-    }
-    for key, us in kernels:
-        low = key.lower()
-        family = next((f for f, ws in words.items() if any(w in low for w in ws)), "other")
-        families[family] += us
-    busy = sum(families.values()) / 1e6
-    log(f"[profile] profiled step wall {wall:.3f} s (profiler on), {n_launched} device "
-        f"kernels, device kernel time {busy:.3f} s; device ms by family: "
-        + ", ".join(f"{k} {v / 1e3:.1f}" for k, v in families.items()))
-    flash = {k: us / 1e3 for k, us in kernels if any(w in k.lower() for w in words["flash"])}
-    log("[profile] flash family by kernel (ms): "
-        + "; ".join(f"{k[:60]} {ms:.1f}" for k, ms in sorted(flash.items())))
-    top = sorted(kernels, key=lambda kv: -kv[1])[:8]
-    log("[profile] top kernels (ms): " + "; ".join(f"{k[:60]} {us / 1e3:.1f}" for k, us in top))
-    return {"device_s": busy, "kernels": n_launched, "family_ms": {k: v / 1e3 for k, v in
-                                                                   families.items()},
-            "flash_ms": {k[:40]: v for k, v in flash.items()}}
+    check(table.kernels > 0, "the profiler recorded no device time")
+    log(f"[profile] profiled step wall {wall:.3f} s (profiler on)")
+    for line in table.lines("[profile]"):
+        log(line)
+    return {"device_s": table.device_s, "kernels": table.kernels, "family_ms": table.family_ms,
+            "flash_ms": {k[:40]: v for k, v in table.flash_ms.items()}}
 
 
 def phase_export(run):
@@ -1191,6 +1176,13 @@ def phase_cli():
 # device). (ranks, backend, sharding mode, full finetune)
 PARALLEL_RUNS = {"nccl1": (1, "nccl", "dp", False), "dp2": (2, "gloo", "dp", False),
                  "tp2": (2, "gloo", "tp", False), "fsdp2": (2, "gloo", "fsdp", True)}
+# tp's all-reduces (per transformer block) and fsdp's gathers (of every
+# weight) cross the host over gloo: at SDXL's full depth tp2 took 14-66 s a
+# step, and the two runs 251-455 s of the script (H100 80GB HBM3 at 700 W).
+# They keep SDXL's widths and heads with 2 transformer blocks where it has
+# 10, 22 of its 70 blocks
+PARALLEL_CUT_RUNS = ("tp2", "fsdp2")
+PARALLEL_CUT_DEPTH = {"transformer_layers": (0, 2, 2), "mid_transformer_layers": 2}
 PARALLEL_LORA_STEPS = 3
 PARALLEL_FF_STEPS = 2  # per optimizer, AdamW then AdamW8bit
 # the first step's gradients, parallel against one process (same params and
@@ -1226,7 +1218,9 @@ def _parallel_setup(run: str, device):
     from sd_lora_trainer_tpu_torch.models.unet import SDXL_UNET_CONFIG
 
     _, _, mode, full = PARALLEL_RUNS[run]
-    built = _build_run(SDXL_UNET_CONFIG, str(device), torch.bfloat16, batch=None, latent_hw=128,
+    ucfg = (dataclasses.replace(SDXL_UNET_CONFIG, **PARALLEL_CUT_DEPTH)
+            if run in PARALLEL_CUT_RUNS else SDXL_UNET_CONFIG)
+    built = _build_run(ucfg, str(device), torch.bfloat16, batch=None, latent_hw=128,
                        rank=16, fuse=mode != "tp" and not full, full=True,
                        config_path=FF_CONFIG if full else TRAIN_CONFIG)
     config = built["config"]
@@ -1573,6 +1567,175 @@ def phase_offload(run) -> dict:
     return {k: {kk: vv for kk, vv in v.items() if kk != "grads"} for k, v in out.items()}
 
 
+# phase 9: the measurement and experiment tools, each run as a user runs
+# it (a subprocess of `python -m`), at its defaults unless stated
+TOOLS_BUCKETS = "1024x1024,832x1216"
+# flash launches per step of the bench's default plan (save:flash_out*,
+# flash_lse* on a bf16 base): each of the 70 forward kernels once, kept
+TOOLS_STEP_LAUNCHES = {"flash_fwd": 70, "flash_bwd": 70}
+# flash_fwd launches per render call: 25 Euler steps x 70 blocks at any
+# batch (the cli phase renders 2 images a call: 875 per image)
+TOOLS_RENDER_FWD = 25 * 70
+# the convergence run: the JAX recipe's 128px and batch, cut from 500 steps
+# (157 s on the H100, over its share of the run's time) to 150, with a
+# checkpoint every 30 so the trends keep the JAX run's 5 points
+CONVERGENCE_STEPS, CONVERGENCE_EVERY = 150, 30
+FLOP_TOL = 1e-3  # the FLOP count with the flash ops vs with plain attention
+PROFILE_TOL = 1e-2  # the profiler's family totals, live vs the exported trace
+# the paths of phase 9 in `launches_by_path`; the render bench runs no backward
+TOOL_PATHS = {"bench": ("flash_fwd", "flash_bwd"), "bench_buckets": ("flash_fwd", "flash_bwd"),
+              "bench_inference": ("flash_fwd",), "convergence": ("flash_fwd", "flash_bwd")}
+
+
+def _tool(args, extra_env=None, timeout=600) -> tuple:
+    """Run `python -m <args>` from the checkout; (stdout, stderr, seconds).
+    A non-zero exit is fatal, with the tails of both streams printed."""
+    env = {**os.environ, "PYTHONPATH": ROOT, **(extra_env or {})}
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True, text=True,
+                          timeout=timeout, env=env)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-3000:])
+        log(proc.stderr[-5000:])
+    check(proc.returncode == 0, f"{' '.join(args)} exited {proc.returncode}")
+    return proc.stdout, proc.stderr, secs
+
+
+def _json_line(stdout: str, what: str) -> dict:
+    lines = [ln for ln in stdout.splitlines() if ln.strip()]
+    check(len(lines) >= 1 and lines[-1].startswith("{"), f"{what}: no JSON line last on stdout")
+    return json.loads(lines[-1])
+
+
+def _bench_line(extra_env, what):
+    out, err, secs = _tool(["sd_lora_trainer_tpu_torch.bench"], extra_env)
+    lines = [ln for ln in out.splitlines() if ln.strip()]
+    check(len(lines) == 1, f"{what}: stdout holds {len(lines)} lines, not one JSON line")
+    res = json.loads(lines[0])
+    for ln in err.splitlines():
+        if ln.startswith("[bench +"):  # its diagnostics, the profile table aside
+            log(f"[tools] {what}: {ln}")
+    cfg = res["config"]
+    check(res["value"] > 0, f"{what}: value {res['value']}")
+    check(cfg["flash_launches_per_step"] == TOOLS_STEP_LAUNCHES,
+          f"{what}: flash launches per step {cfg['flash_launches_per_step']} != "
+          f"{TOOLS_STEP_LAUNCHES}")
+    log(f"[tools] {what} in {secs:.1f} s: " + json.dumps(res))
+    launches = {k: round(v * cfg["timed_steps"]) for k, v in cfg["flash_launches_per_step"].items()}
+    return res, launches
+
+
+def _flop_cross_check() -> dict:
+    """count_step_flops at SDXL 1024px bs=1, remat off, through the flash
+    ops' formulas and through plain attention's matmuls."""
+    import numpy as np
+
+    from sd_lora_trainer_tpu_torch import bench
+    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+
+    run = bench.setup(bench.Levers.from_env({"BENCH_BS": "1", "BENCH_REMAT": "off",
+                                             "BENCH_SCAN": "1"}))
+    batch = run.batch(128, 128, np.random.RandomState(0))
+    before = dict(fa.LAUNCHES)
+    flash = bench.step_flops(run, batch)
+    launched = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    run.sc = dataclasses.replace(run.sc, use_flash=False)
+    plain = bench.step_flops(run, batch)
+    rel = abs(flash - plain) / plain
+    log(f"[tools] FLOP count, SDXL 1024px bs=1, remat off, fwd+bwd: flash ops {flash / 1e12:.4f} "
+        f"TF ({launched}), plain attention {plain / 1e12:.4f} TF, rel diff {rel:.2e} (gate "
+        f"{FLOP_TOL:.0e})")
+    check(all(v == 70 for v in launched.values()), f"the flash count launched {launched}")
+    check(rel <= FLOP_TOL, f"FLOP counts differ: flash {flash}, plain {plain}")
+    del run, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"flash": flash, "plain": plain, "rel": rel}
+
+
+def phase_tools() -> dict:
+    """Phase 9: the port's bench (defaults, then buckets), the FLOP
+    cross-check, the render bench, the profiler table against its exported
+    trace, and the seeded convergence run; returns the flash launches of
+    each path."""
+    from sd_lora_trainer_tpu_torch.main import SUMMARY_TAG
+
+    by_path = {}
+    t_phase = time.perf_counter()
+    bench, by_path["bench"] = _bench_line({}, "bench")
+    mfu = bench.get("mfu")
+    check(mfu is not None and 0 < mfu <= 1, f"bench: mfu {mfu}")
+    buckets, by_path["bench_buckets"] = _bench_line(
+        {"BENCH_BS": "4", "BENCH_BUCKETS": TOOLS_BUCKETS, "BENCH_STEPS": "4"}, "bench_buckets")
+    per_bucket = buckets["config"]["s_per_step_by_bucket"]
+    check(buckets["metric"] == "train_throughput_bucketed"
+          and set(per_bucket) == set(TOOLS_BUCKETS.split(",")), f"bench_buckets: {per_bucket}")
+
+    flops = _flop_cross_check()
+    per_step = bench["config"]["flops_per_step"]
+    check(per_step == 8 * flops["flash"],
+          f"the bench's flops_per_step {per_step} != 8 x the bs=1 count {flops['flash']}")
+
+    stdout, _, secs = _tool(["sd_lora_trainer_tpu_torch.scripts.bench_inference"])
+    inf = _json_line(stdout, "bench_inference")
+    per_call = inf["config"]["launches_per_call"]
+    log(f"[tools] bench_inference in {secs:.1f} s: " + json.dumps(inf))
+    check(inf["value"] > 0 and per_call["flash_fwd"] == TOOLS_RENDER_FWD
+          and per_call["flash_bwd"] == 0, f"bench_inference: {inf}")
+    calls = inf["config"]["images"] // inf["config"]["batch"]
+    by_path["bench_inference"] = {k: round(v * calls) for k, v in per_call.items()}
+
+    prof_dir = os.path.join(ROOT, "build", "tools_profile")
+    stdout, _, secs = _tool(["sd_lora_trainer_tpu_torch.scripts.profile_step", "--steps", "2",
+                             "--out", prof_dir])
+    for ln in stdout.splitlines()[:-1]:
+        log(f"[tools] profile_step: {ln}")
+    live = _json_line(stdout, "profile_step")
+    summary = _json_line(_tool(["sd_lora_trainer_tpu_torch.scripts.profile_step", "--summarize",
+                                prof_dir])[0], "profile_step --summarize")
+    fam_live, fam_trace = live["family_ms"], summary["family_ms"]
+    worst = max(abs(fam_live[k] - fam_trace[k]) / max(fam_live[k], fam_trace[k], 1e-9)
+                for k in fam_live)
+    log(f"[tools] profile_step in {secs:.1f} s: 2 steps, device ms by family live "
+        f"{ {k: round(v, 2) for k, v in fam_live.items()} }, from the trace "
+        f"{ {k: round(v, 2) for k, v in fam_trace.items()} } (worst rel diff {worst:.2e}, gate "
+        f"{PROFILE_TOL:.0e}); trace {os.path.getsize(summary['trace']) / 1e6:.1f} MB")
+    check(live["device_s"] > 0 and worst <= PROFILE_TOL,
+          f"profile_step: live {fam_live} against the trace {fam_trace}")
+    check(live["launches_per_step"] == TOOLS_STEP_LAUNCHES,
+          f"profile_step: flash launches per step {live['launches_per_step']}")
+    shutil.rmtree(prof_dir, ignore_errors=True)
+
+    conv_dir = os.path.join(ROOT, "build", "convergence_torch")
+    stdout, _, secs = _tool(["sd_lora_trainer_tpu_torch.scripts.convergence_run", "--out",
+                             conv_dir, "--steps", str(CONVERGENCE_STEPS),
+                             "--checkpointing-steps", str(CONVERGENCE_EVERY)], timeout=900)
+    summ = json.loads(next(ln for ln in stdout.splitlines()
+                           if ln.startswith(SUMMARY_TAG))[len(SUMMARY_TAG):])
+    with open(os.path.join(conv_dir, "convergence_report.json")) as f:
+        report = json.load(f)
+    with open(os.path.join(ROOT, "convergence", "convergence_report.json")) as f:
+        jax_report = json.load(f)  # the JAX package's tiny run
+    launches = {k: summ["launches"]["train"][k] + sum(r[k] for r in summ["launches"]["render"])
+                for k in summ["launches"]["train"]}
+    q, h = report.get("quality_proxy", {}), report.get("held_out_trend", {})
+    log(f"[tools] convergence_run --tiny in {secs:.1f} s: {report['steps']} steps at "
+        f"{report['resolution']}px, {summ['s_per_step']:.4f} s/step, loss drop "
+        f"{report.get('loss_drop_pct')}% (the JAX run's {jax_report['loss_drop_pct']}%), x0 "
+        "latent MSE "
+        f"{q.get('per_checkpoint')}, held-out eps MSE {h.get('per_checkpoint')}, launches "
+        f"{launches} (train {summ['launches']['train']})")
+    check(set(jax_report) <= set(report),
+          f"the report lacks {sorted(set(jax_report) - set(report))}")
+    check(q.get("improved") is True and h.get("improved") is True,
+          f"convergence trends did not improve: {q}, {h}")
+    shutil.rmtree(conv_dir, ignore_errors=True)
+    by_path["convergence"] = launches
+    log(f"[tools] phase 9 in {time.perf_counter() - t_phase:.1f} s")
+    return by_path
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--plan", choices=("auto", "full", "off"), default=None,
@@ -1582,26 +1745,36 @@ def main() -> int:
     args = parser.parse_args()
     if args.parallel_rank:
         return parallel_rank(args.parallel_rank)
+    t_start = time.perf_counter()
+
+    def lap(phase: str) -> None:
+        gc.collect()
+        torch.cuda.empty_cache()
+        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+
     smi = phase_device()
     summary = phase_kernels()
+    lap("kernels")
     phase_reference()
     run, results = phase_train([args.plan] if args.plan else ["full", "auto"])
+    lap("train")
     phase_export(run)
     offload = phase_offload(run)
     del run
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("export, offload")
     optim = phase_optim()
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("optim")
     cli = phase_cli()
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("cli")
+    tools = phase_tools()
+    lap("tools")
     parallel = phase_parallel()
+    lap("parallel")
     launches = cli["launches"]
     by_path = {f"train_{p}": r["launches"] for p, r in results.items()}
     by_path.update({path: optim[path]["launches"] for path in OPTIM_PATHS})
     by_path.update(cli_train=cli["train_launches"], cli_render=cli["render_launches"])
+    by_path.update(tools)
     by_path.update({run: parallel[run]["launches"] for run in PARALLEL_RUNS})
     entries = []
     for name, s in summary.items():
@@ -1609,6 +1782,8 @@ def main() -> int:
         check(launches[name] > 0, f"{name} was never launched on the main path")
         check(all(by_path[path][name] > 0 for path in OPTIM_PATHS + tuple(PARALLEL_RUNS)),
               f"{name} was not launched on every optim and parallel path: {by_path}")
+        check(all(by_path[path][name] > 0 for path, names in TOOL_PATHS.items() if name in names),
+              f"{name} was not launched on every tool path: {by_path}")
         entries.append({
             "name": name, "route": "cuda",
             "source": f"sd_lora_trainer_tpu_torch/csrc/{name}.cu",

@@ -7,6 +7,8 @@
 - `token_attention_loss`: the DAAM cross-attention regularizer in the JAX
   package's streaming form (spatial means as fixed linear functionals of the
   raw scores; only the TI-token maps are resized);
+- `stack_attention_maps`: the same scores as resized heatmaps, for the
+  DAAM debug plots (diffusion/daam_debug.py);
 - `lora_l1_penalty`.
 
 The resizes replay jax.image.resize exactly: "bicubic" is the Keys cubic
@@ -170,6 +172,31 @@ def _resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     return x
 
 
+def _map_hw(name: str, q_len: int, img_ratio: float) -> Tuple[int, int]:
+    """(height, width) of an attention map of q_len pixels; img_ratio = width / height."""
+    width = round(math.sqrt(q_len * img_ratio))
+    height = round(width / img_ratio)
+    if height * width != q_len:
+        raise ValueError(f"attention map {name}: q_len={q_len} does not factor as "
+                         f"{height}x{width} for img_ratio={img_ratio}")
+    return height, width
+
+
+def stack_attention_maps(attn_scores: Dict[str, torch.Tensor], img_ratio: float) -> torch.Tensor:
+    """Per-layer DAAM scores (name -> [B, q_len, 77]) as spatial heatmaps at
+    the smallest layer's resolution, stacked in name order: [L, B, h, w, 77].
+    The larger maps are resized bicubic, as jax.image.resize does."""
+    names = sorted(attn_scores)
+    maps = []
+    for name in names:
+        score = attn_scores[name]
+        b, q_len, n_text = score.shape
+        maps.append(score.reshape(b, *_map_hw(name, q_len, img_ratio), n_text))
+    h, w = min((m.shape[1:3] for m in maps), key=lambda s: s[0] * s[1])
+    return torch.stack([m if m.shape[1:3] == (h, w) else _resize_bicubic(m, (h, w)).to(m.dtype)
+                        for m in maps])
+
+
 def _resized_spatial_mean_weights(height: int, width: int, min_shape: Tuple[int, int],
                                   device) -> torch.Tensor:
     """w with <w, x.ravel()> == mean over pixels of bicubic_resize(x, min_shape)."""
@@ -203,15 +230,7 @@ def token_attention_loss(
     valid = (ti_token_positions >= 0).all(dim=1)
     safe_pos = ti_token_positions.long().clamp(0, n_text - 1)
 
-    shapes = []
-    for name in names:
-        q_len = attn_scores[name].shape[1]
-        width = round(math.sqrt(q_len * img_ratio))
-        height = round(width / img_ratio)
-        if height * width != q_len:
-            raise ValueError(f"attention map {name}: q_len={q_len} does not factor as "
-                             f"{height}x{width} for img_ratio={img_ratio}")
-        shapes.append((height, width))
+    shapes = [_map_hw(name, attn_scores[name].shape[1], img_ratio) for name in names]
     min_shape = min(shapes, key=lambda s: s[0] * s[1])
     h, w = min_shape
 

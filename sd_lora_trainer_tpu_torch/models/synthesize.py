@@ -18,7 +18,7 @@ from typing import Dict, Optional
 import torch
 
 from sd_lora_trainer_tpu_torch.models.clip import CLIPTextConfig, init_clip_params
-from sd_lora_trainer_tpu_torch.models.unet import UNetConfig, init_unet_params
+from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG, UNetConfig, init_unet_params
 from sd_lora_trainer_tpu_torch.models.vae import VAEConfig, init_vae_params
 from sd_lora_trainer_tpu_torch.models.weights import (
     CLIP_SD15_PREFIX,
@@ -41,6 +41,11 @@ TINY_CLIP_G_CONFIG = CLIPTextConfig(
     max_position_embeddings=77, eos_token_id=255, hidden_act="gelu", projection_dim=32,
 )
 TINY_VAE_CONFIG = VAEConfig(block_out_channels=(8, 16), layers_per_block=1, norm_num_groups=4)
+# the tiny SDXL UNet widened to head dim 64 at every level: on the card its
+# self-attention (>= 256 tokens) takes the flash kernels, which are built
+# for head dims 40, 64, 80 and 160; the tiny UNet's 32 has no kernel there
+TINY_FLASH_SDXL_UNET_CONFIG = dataclasses.replace(TINY_SDXL_UNET_CONFIG,
+                                                  block_out_channels=(64, 128, 128))
 
 
 def export_ldm_vae(params: dict, cfg: VAEConfig, dtype=torch.float32) -> Dict[str, torch.Tensor]:

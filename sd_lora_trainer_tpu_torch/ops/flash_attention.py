@@ -30,6 +30,7 @@ from typing import Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.flop_counter import register_flop_formula
 
 from sd_lora_trainer_tpu_torch.ops.checkpoint_names import checkpoint_name
 from sd_lora_trainer_tpu_torch.ops.kernels import FlashArgs, FlashStrides, kernel_lib
@@ -271,7 +272,19 @@ def _kernel_layout(x: torch.Tensor) -> torch.Tensor:
     return x if _kernel_readable(x) else x.contiguous()
 
 
-def _backward(q, k, v, o, lse, do, sm_scale: float, valid_len: int):
+# The attention is an op of its own, so that a selective remat policy sees it
+# and can keep its outputs (o, lse) for the backward instead of running the
+# forward kernel again (models/unet.py, `flash_out*` and `flash_lse*`). Its
+# backward is an op too, so that a dispatch mode (FlopCounterMode,
+# FakeTensorMode) sees the backward kernel's call, not the ctypes launch.
+
+
+@torch.library.custom_op("sd_lora_torch::flash_attention_backward", mutates_args=())
+def flash_attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                             lse: torch.Tensor, do: torch.Tensor, sm_scale: float,
+                             valid_len: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) of the attention from its inputs, its outputs o and lse,
+    and dO."""
     if do.is_cuda:
         do = _kernel_layout(do)
     # di = rowsum(o * dO) stays plain torch, as it is plain jnp in the JAX bwd
@@ -279,9 +292,10 @@ def _backward(q, k, v, o, lse, do, sm_scale: float, valid_len: int):
     return flash_bwd(q, k, v, do, lse, di, sm_scale, valid_len)
 
 
-# The attention is an op of its own, so that a selective remat policy sees it
-# and can keep its outputs (o, lse) for the backward instead of running the
-# forward kernel again (models/unet.py, `flash_out*` and `flash_lse*`).
+@flash_attention_backward.register_fake
+def _(q, k, v, o, lse, do, sm_scale, valid_len):
+    return _empty_like_heads(q), _empty_like_heads(k), _empty_like_heads(v)
+
 
 
 @torch.library.custom_op("sd_lora_torch::flash_attention", mutates_args=())
@@ -305,7 +319,8 @@ def _setup_context(ctx, inputs, output):
 
 def _flash_attention_backward(ctx, do, _dlse):
     q, k, v, o, lse = ctx.saved_tensors
-    return _backward(q, k, v, o, lse, do, ctx.sm_scale, ctx.valid_len) + (None, None)
+    grads = flash_attention_backward(q, k, v, o, lse, do, ctx.sm_scale, ctx.valid_len)
+    return tuple(grads) + (None, None)
 
 
 flash_attention.register_autograd(_flash_attention_backward, setup_context=_setup_context)
@@ -342,7 +357,8 @@ class _FlashAttentionStash8(torch.autograd.Function):
     def backward(ctx, do):
         q, k, v, qo, so, lse = ctx.saved_tensors
         o = dequantize_rowwise(qo, so, q.dtype)
-        return _backward(q, k, v, o, lse, do, ctx.sm_scale, ctx.valid_len) + (None,) * 3
+        grads = flash_attention_backward(q, k, v, o, lse, do, ctx.sm_scale, ctx.valid_len)
+        return tuple(grads) + (None,) * 3
 
 
 def flash_mha(q, k, v, heads: int, name_tag: str = "", stash8_out: bool = False,
@@ -392,3 +408,32 @@ def flash_mha(q, k, v, heads: int, name_tag: str = "", stash8_out: bool = False,
     if valid and not pre_padded:
         out = out[:, :lq]
     return out
+
+
+# ---------------------------------------------------------------------------
+# FLOPs of the model's work, for FlopCounterMode (utils/profiling.py)
+# ---------------------------------------------------------------------------
+
+
+def attention_pairs(length: int, valid_len: int) -> int:
+    """(query, key) pairs of the model's attention: the real tokens' only.
+    The kernels also attend the pad tokens among themselves (the segment
+    mask leaves (L - valid)^2 more pairs); that is not the model's work."""
+    return (valid_len or length) ** 2
+
+
+@register_flop_formula([torch.ops.sd_lora_torch.flash_attention,
+                        torch.ops.sd_lora_torch.flash_attention_stash8])
+def _forward_flops(q_shape, k_shape, v_shape, sm_scale, valid_len, *args, out_shape=None,
+                   **kwargs) -> int:
+    b, h, length, d = q_shape
+    return 4 * b * h * attention_pairs(length, valid_len) * d  # S = QK^T, O = PV
+
+
+@register_flop_formula(torch.ops.sd_lora_torch.flash_attention_backward)
+def _backward_flops(q_shape, k_shape, v_shape, o_shape, lse_shape, do_shape, sm_scale, valid_len,
+                    *args, out_shape=None, **kwargs) -> int:
+    b, h, length, d = q_shape
+    # dP = dO V^T, dV = P^T dO, dQ = dS K, dK = dS^T Q; the fused kernel's
+    # recompute of S is not the model's work
+    return 8 * b * h * attention_pairs(length, valid_len) * d

@@ -1,0 +1,221 @@
+"""Profiling and measurement helpers (counterpart of sd_lora_trainer_tpu/utils/profiling.py).
+
+- `trace_steps(output_dir, enabled)`: a `torch.profiler` trace of a block of
+  steps, written as a Chrome trace to `output_dir/profile/trace.json`
+  (Perfetto or chrome://tracing open it);
+- `ThroughputMeter`: images per second; it waits for the device before it
+  reads the clock;
+- `device_kernels` and `trace_kernels`: the device kernels of a profiler run,
+  from the live profiler or from an exported trace, and
+  `device_time_table`, their time by kernel family (flash, GEMM, conv,
+  other), the flash kernels one by one, and the top kernels;
+- `count_step_flops`: the model FLOPs of one step's forward and backward,
+  counted by `FlopCounterMode` (the flash ops carry their formulas,
+  ops/flash_attention.py);
+- the card's published peaks, by device name (`peak_bf16_flops`).
+
+Unlike the JAX package's `trace_steps`, an exception in the traced block
+comes out unchanged (the JAX version yields a second time and reports it
+as a failed trace), and a profiler failure raises.
+"""
+
+from __future__ import annotations
+
+import collections
+import contextlib
+import dataclasses
+import json
+import os
+import subprocess
+import time
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import torch
+
+# NVIDIA's data sheet, H100 SXM, dense: bf16 tensor cores and HBM3. Rates
+# assume the 700 W power limit; a card may be set below it.
+PEAK_BF16_FLOPS = 989e12
+PEAK_BYTES = 3.35e12
+# torch.cuda.get_device_name of the cards whose peaks are known; any other
+# card gets no peak (and no MFU), never a guessed one
+_PEAKS = {"H100 80GB HBM3": PEAK_BF16_FLOPS}
+
+# words in a kernel's name that place it in a family; the first match wins
+FAMILY_WORDS = {
+    "flash": ("flash_fwd_kernel", "flash_bwd_kernel", "flash_bwd_dq_convert_kernel"),
+    "conv": ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn"),
+    "gemm": ("gemm", "nvjet", "xmma", "cutlass", "matmul"),
+}
+# the Chrome trace's categories of device work (kernels, copies, fills)
+_DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def peak_bf16_flops(device_name: str) -> Optional[float]:
+    """The card's dense bf16 peak in FLOP/s, or None for a card not in the table."""
+    return next((p for key, p in _PEAKS.items() if key in device_name), None)
+
+
+def device_description(device: torch.device) -> str:
+    """The card's name and power limit as nvidia-smi gives them ("cpu" on the CPU)."""
+    if device.type != "cuda":
+        return "cpu"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", f"--id={index}", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True, check=True, timeout=60)
+        return out.stdout.strip().splitlines()[0]
+    except (OSError, subprocess.SubprocessError, IndexError):
+        return f"{torch.cuda.get_device_name(index)}, power limit not read"
+
+
+def synchronize(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+@contextlib.contextmanager
+def trace_steps(output_dir: str, enabled: bool = True) -> Iterator[Optional[object]]:
+    """Trace the block with torch.profiler (CPU ops, and CUDA kernels where a
+    card exists); yields the profiler (None when not enabled). On a normal
+    exit the trace is written to `output_dir/profile/trace.json`."""
+    if not enabled:
+        yield None
+        return
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    trace_dir = os.path.join(output_dir, "profile")
+    os.makedirs(trace_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+    prof.export_chrome_trace(os.path.join(trace_dir, "trace.json"))
+
+
+class ThroughputMeter:
+    """Images per second since construction (the reference's headline
+    counter); on a card it synchronizes before it reads the clock, so the
+    images counted are done."""
+
+    def __init__(self, device: Optional[torch.device] = None):
+        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        synchronize(self.device)
+        self.start = time.perf_counter()
+        self.images = 0
+
+    def update(self, n_images: int) -> None:
+        self.images += n_images
+
+    @property
+    def imgs_per_sec(self) -> float:
+        synchronize(self.device)
+        dt = time.perf_counter() - self.start
+        return self.images / dt if dt > 0 else 0.0
+
+
+Kernel = Tuple[str, float, int]  # (name, device µs in total, launches)
+
+
+def device_kernels(prof) -> List[Kernel]:
+    """The device work of a live profiler run, by name, from the profiler's
+    raw events: `key_averages()` builds a Python object a event and takes
+    tens of seconds over a bs=8 SDXL step's ~150,000. User annotations
+    (e.g. Optimizer.step) span kernels and are left out. A kernel's name may
+    hold '#' (PyTorch's lambda-templated elementwise and copy kernels,
+    `{lambda()#1}`): such kernels count like any other."""
+    us: Dict[str, float] = collections.defaultdict(float)
+    count: Dict[str, int] = collections.defaultdict(int)
+    for e in prof.profiler.kineto_results.events():
+        if (e.device_type() == torch.autograd.DeviceType.CUDA and not e.is_user_annotation()
+                and e.duration_ns() > 0):
+            us[e.name()] += e.duration_ns() / 1e3
+            count[e.name()] += 1
+    return [(name, t, count[name]) for name, t in us.items()]
+
+
+def trace_kernels(path: str) -> List[Kernel]:
+    """The device work of an exported Chrome trace (`trace_steps`), by name."""
+    with open(path) as f:
+        events = json.load(f)
+    events = events["traceEvents"] if isinstance(events, dict) else events
+    us: Dict[str, float] = collections.defaultdict(float)
+    count: Dict[str, int] = collections.defaultdict(int)
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") in _DEVICE_CATEGORIES:
+            us[e["name"]] += float(e.get("dur", 0.0))
+            count[e["name"]] += 1
+    return [(name, t, count[name]) for name, t in us.items() if t > 0]
+
+
+def kernel_family(name: str) -> str:
+    low = name.lower()
+    return next((f for f, words in FAMILY_WORDS.items() if any(w in low for w in words)), "other")
+
+
+@dataclasses.dataclass
+class DeviceTimeTable:
+    device_s: float  # all device work
+    kernels: int  # launches
+    family_ms: Dict[str, float]
+    flash_ms: Dict[str, float]  # each flash-family kernel
+    top_ms: List[Tuple[str, float]]  # the longest kernels, by total time
+
+    def lines(self, prefix: str = "[profile]") -> List[str]:
+        return [
+            f"{prefix} {self.kernels} device kernels, device time {self.device_s:.3f} s; "
+            "device ms by family: " + ", ".join(f"{k} {v:.1f}" for k, v in self.family_ms.items()),
+            f"{prefix} flash family by kernel (ms): "
+            + "; ".join(f"{k[:60]} {ms:.1f}" for k, ms in sorted(self.flash_ms.items())),
+            f"{prefix} top kernels (ms): " + "; ".join(f"{k[:60]} {ms:.1f}" for k, ms in self.top_ms),
+        ]
+
+
+def device_time_table(kernels: List[Kernel], top: int = 8) -> DeviceTimeTable:
+    """Device time by kernel family, the flash kernels and the top kernels."""
+    families = {name: 0.0 for name in (*FAMILY_WORDS, "other")}
+    for name, us, _ in kernels:
+        families[kernel_family(name)] += us / 1e3
+    flash = {name: us / 1e3 for name, us, _ in kernels if kernel_family(name) == "flash"}
+    top_ms = [(name, us / 1e3) for name, us, _ in sorted(kernels, key=lambda k: -k[1])[:top]]
+    return DeviceTimeTable(device_s=sum(families.values()) / 1e3,
+                           kernels=sum(n for _, _, n in kernels), family_ms=families,
+                           flash_ms=flash, top_ms=top_ms)
+
+
+def profile_device(fn, device: torch.device) -> Tuple[float, DeviceTimeTable]:
+    """Run `fn()` once under torch.profiler; (wall seconds, its device time table)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    synchronize(device)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        fn()
+        synchronize(device)
+        wall = time.perf_counter() - t
+    return wall, device_time_table(device_kernels(prof))
+
+
+def count_step_flops(sc, trainable, frozen, batch) -> int:
+    """Model FLOPs of one step's forward and backward (conditioning, UNet,
+    losses) on `batch` (one micro-batch, no accum dim), counted by
+    FlopCounterMode with remat off: recomputation is not the model's work.
+    The optimizer's update is not counted. The trainables' gradients are
+    cleared after; the draws come from a generator of their own."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from sd_lora_trainer_tpu_torch.training.optimizers import group_tensors
+    from sd_lora_trainer_tpu_torch.training.step import compute_loss
+
+    plain = dataclasses.replace(sc, remat=False, stash8="", remat_te=False)
+    device = batch["latent_mean"].device
+    gen = torch.Generator(device=device).manual_seed(0)
+    with FlopCounterMode(display=False) as counter:
+        loss, _ = compute_loss(trainable, frozen, plain, batch, 0, gen)
+        loss.backward()
+    for t in group_tensors(trainable):
+        t.grad = None
+    return int(counter.get_total_flops())

@@ -3,6 +3,7 @@
 `fix_prompt` and `replace_in_string` are copies (both packages must produce
 the same captions and prompts); `seed_everything` seeds the host RNGs only,
 as the JAX package's: device draws come from explicit `torch.Generator`s.
+`print_system_info` prints the host's RAM and disk and each CUDA device.
 """
 
 from __future__ import annotations
@@ -52,3 +53,22 @@ def seed_everything(seed: int) -> None:
     """Seed Python's and numpy's global RNGs (the host draws)."""
     random.seed(seed)
     np.random.seed(seed % (2**32))
+
+
+def print_system_info() -> None:
+    """Host RAM and disk, and each CUDA device's name and free/total memory."""
+    import shutil
+
+    try:
+        import psutil
+
+        mem = psutil.virtual_memory()
+        print(f"RAM: {mem.used / 1e9:.1f} / {mem.total / 1e9:.1f} GB used")
+    except ImportError:
+        pass
+    total, used, _ = shutil.disk_usage("/")
+    print(f"Disk: {used / 1e9:.1f} / {total / 1e9:.1f} GB used")
+    for i in range(torch.cuda.device_count()):
+        free, total = torch.cuda.mem_get_info(i)
+        print(f"Device: {torch.cuda.get_device_name(i)} (id={i})")
+        print(f"  memory: {(total - free) / 1e9:.2f} / {total / 1e9:.2f} GB in use")

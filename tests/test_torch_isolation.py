@@ -40,7 +40,11 @@ def test_port_modules_exist():
                  "inference", "main", "utils.utils", "utils.val_prompts", "utils.plots",
                  "training.prodigy", "training.quantized_adam", "training.token_warmup",
                  "predict", "node", "comfyui_init", "parallel.sharding",
-                 "parallel.distributed"):
+                 "parallel.distributed", "bench", "utils.profiling",
+                 "diffusion.experimental_losses", "diffusion.daam_debug", "scripts",
+                 "scripts.bench_inference", "scripts.profile_step", "scripts.convergence_run",
+                 "scripts.plan_trace_check", "scripts.real_weights_check",
+                 "scripts.render_checkpoint", "scripts.auto_eval_model"):
         assert f"sd_lora_trainer_tpu_torch.{name}" in mods
 
 
