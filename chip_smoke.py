@@ -14,15 +14,21 @@ runs one plan alone ("off": a bf16 base, nothing recomputed). Phases, each
 fatal on failure (the script exits non-zero and prints no result):
 1. device: refuses to run without CUDA; prints the card's name and power
    limit, builds the flash kernels (flash_fwd, the fused flash_bwd) from
-   csrc/ with nvcc and prints each kernel's registers and spills;
+   csrc/ with nvcc, one unit per padded head dim 16-256 and kernel, all at
+   once (the seconds of a cold build on a `[build]` line), and prints each
+   instance's registers and spills;
 2. kernels: each kernel against its plain PyTorch version in bf16 at the
    shapes the UNet gives it (SDXL 1024px bs=4, ragged buckets, SD1.5 head
-   dims, the tp split's [4,5,4096,64] and [4,10,1024,64]), with its time, the plain version's and PyTorch SDPA's (forward
+   dims, the tp split's [4,5,4096,64] and [4,10,1024,64], SD1.5's face
+   recipe at 768px: 9216 tokens at d=40, 2304 -> 3072 at 80, 576 -> 1024
+   at 160) and at the rest of the JAX gate's head dims (16, 32, 36, 96,
+   128, 192, 256, and 256 ragged), with its time, the plain version's and PyTorch SDPA's (forward
    beside flash_fwd, backward beside flash_bwd), equal bits from two
    flash_fwd launches, and the run-to-run difference of flash_bwd's dq (its
    atomic adds);
 3. reference: the self-attention LoRA-B gradients of a small SDXL-topology
-   train loss on the card (flash kernels) against the same computation on the
+   train loss (the JAX package's tiny SDXL UNet, head dim 32) on the card
+   (flash kernels) against the same computation on the
    CPU (plain attention); on the card, the named plan keeping the flash
    residuals against full remat (and half the forward launches), and an int8
    base against the bf16 one;
@@ -61,6 +67,19 @@ fatal on failure (the script exits non-zero and prints no result):
    fused qkv, TI). Checks the artifact set, the LoRA read back bit for bit,
    finite losses, and flash launches by the train steps and by the render;
    prints each phase's time from the trainer's `[train-summary]` line;
+10. sd15 (after phase 7): SD1.5 end to end. The CLI as in phase 7 on a
+   full-width SD1.5 checkpoint file in fp16 (2.13 GB) under
+   train_configs/training_args_face_sd15.json as published (768px, bs=4,
+   rank 16, TI, face mode) but for the offline overrides: no captioner, a
+   folder of 8 synthetic 768px PNGs (each with a skin-toned ellipse),
+   10 steps, 2 renders, and the face-detection chain for CLIPSeg's face
+   masks (no CLIPSeg weights offline; the heuristic-skin backend without
+   mediapipe). Checks finite losses, the LoRA's keys and shapes against the
+   JAX package's SD1.5 export (tests/golden/kohya_sd15_rank16.json), the TI
+   rows, 15 flash_fwd + 15 flash_bwd a step and 375 flash_fwd a render
+   call; prints `[sd15]` lines (load, preprocess and the face-mask backend,
+   latent cache, s/step and peak, checkpoint, render s/img, launches) and
+   the step's model FLOPs;
 8. parallel: the parallel code, each run launched by
    `python -m torch.distributed.run` with this script's `--parallel-rank`
    as the ranks (one JSON file each, collected here; on a failure the tail
@@ -80,22 +99,24 @@ fatal on failure (the script exits non-zero and prints no result):
 9. tools (run before phase 8): the port's measurement tools as a user runs
    them, each a `python -m` subprocess: the bench at its defaults (SDXL
    1024px bs=8, K=4: exactly one JSON line, value > 0, 0 < mfu <= 1, 70/70
-   flash launches a step), then bucketed (bs=4, 1024x1024 and 832x1216: the
+   flash launches a step), then with BENCH_MODEL=sd15 at its defaults
+   (512px, bs=8, no remat: 15/15 a step), then bucketed (bs=4, 1024x1024 and 832x1216: the
    ragged full-width step, s/step per bucket); the model FLOP count at
    1024px bs=1 through the flash ops' formulas against plain attention's
    matmuls (within FLOP_TOL); the render bench (1024px, 25 steps, batch 4:
    s/img, 1750 flash_fwd a call); profile_step over 2 bench steps, its
    family table against `--summarize` of its exported trace (within
-   PROFILE_TOL); the seeded tiny convergence run (the JAX recipe at 128px,
-   cut to CONVERGENCE_STEPS steps: both quality trends improved, the loss
-   drop beside the JAX run's).
+   PROFILE_TOL); the seeded tiny convergence run (the JAX recipe itself,
+   its tiny SDXL UNet at 128px, cut to CONVERGENCE_STEPS steps: both
+   quality trends improved, the loss drop beside the JAX run's).
 After phase 5 an offload check runs on the trained state: one LoRA+TI loss
 and backward under `offload:flash_out*,flash_lse*` against
 `save:flash_out*,flash_lse*` (gradients within 1e-3, the kept tensors in
 pinned host memory, the peak below save:'s; s/step of each).
 It then prints the `kernels` JSON line (launches from the cli run, by path
 in `launches_by_path`: the train plans, the optim phase's paths, the cli
-run, the tools of phase 9 and rank 0 of each parallel run), the nvidia-smi
+run, the sd15 run, the tools of phase 9 and rank 0 of each parallel run;
+each kernel's every case under `cases`), the nvidia-smi
 line, and as the last line the result object. A `[time]` line after each
 phase gives the seconds since the start.
 """
@@ -150,6 +171,22 @@ KERNEL_CASES = [
     # the tp split's shapes: SDXL's 10 and 20 heads, 5 and 10 a rank of 2
     ("tp2_4096", 4, 5, 4096, 64),
     ("tp2_1024", 4, 10, 1024, 64),
+    # SD1.5's face recipe at 768px bs=4 (the sd15 phase): 9216 tokens at
+    # d=40 (batch 2 here: the plain version's fp32 logits take 5.4 GB a
+    # tensor), 2304 padded to 3072 at d=80, 576 padded to 1024 at d=160
+    ("sd15_face_9216", 2, 8, 9216, 40),
+    ("sd15_face_2304", 4, 8, 2304, 80),
+    ("sd15_face_576", 4, 8, 576, 160),
+    # the rest of the JAX gate's head dims: the tiny UNets' 16 and 32, 36
+    # (padded to 40 in device memory), 96, 128, 192, 256, and 256 ragged
+    ("d16", 2, 4, 1024, 16),
+    ("d32", 2, 4, 1024, 32),
+    ("d36", 2, 4, 1024, 36),
+    ("d96", 2, 4, 1024, 96),
+    ("d128", 2, 4, 1024, 128),
+    ("d192", 2, 4, 1024, 192),
+    ("d256", 2, 4, 1024, 256),
+    ("d256_ragged_1000", 2, 4, 1000, 256),
 ]
 # calls per UNet pass at SDXL 1024px: 10 blocks at 4096 tokens, 60 at 1024
 MAIN_PATH_CALLS = {"sdxl_4096": 10, "sdxl_1024": 60}
@@ -192,8 +229,13 @@ def phase_device():
     ).stdout.strip().splitlines()[0]
     log(f"[device] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; torch {torch.__version__}"
         f" cuda {torch.version.cuda}")
+    cold = not any(kernels._lib_path(n).exists() for n in kernels.KERNEL_SOURCES)
     secs = kernels.build_kernels()
     log(f"[device] built {', '.join(kernels.KERNEL_SOURCES)} for sm_90a in {secs:.1f} s")
+    units = len(kernels.KERNEL_SOURCES) * (len(kernels.HEAD_DIM_TILES) + 1)
+    log(f"[build] {'cold' if cold else 'cached'}: {len(kernels.KERNEL_SOURCES)} kernels x "
+        f"{len(kernels.HEAD_DIM_TILES)} head-dim tiles x 2 output types in {units} nvcc units, "
+        f"{secs:.1f} s on {os.cpu_count()} cores")
     for name, report in kernels.BUILD_LOG.items():
         log(f"[device] ptxas {name}: " + "; ".join(kernels.ptxas_summary(report)))
     return smi
@@ -227,7 +269,7 @@ def phase_kernels():
 
     names = ("flash_fwd", "flash_bwd")
     summary = {n: {"err": 0.0, "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "library_ms": 0.0,
-                   "flops": 0.0, "bytes": 0.0} for n in names}
+                   "flops": 0.0, "bytes": 0.0, "cases": []} for n in names}
     dev = torch.device("cuda")
     for case, b, h, length, d in KERNEL_CASES:
         lp = fa._pad_plan(length)[0]
@@ -297,6 +339,9 @@ def phase_kernels():
             for key, val in (("ms", ms), ("plain_ms", plain_ms), ("bound_ms", bound),
                              ("library_ms", lib), ("flops", flops), ("bytes", nbytes)):
                 s[key] += n_calls * val
+            s["cases"].append({"case": case, "shape": [b, h, lp, d], "valid": valid or lp,
+                               "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                               "bound_ms": bound, "bound_by": by, "library_ms": lib})
             line.append(f"{name} err={max(errs):.2e} (tol {tol:.2e}) ms={ms:.3f} "
                         f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}){extra}")
         log(f"[kernels] {case} [{b},{h},{lp},{d}] valid={valid or lp}: " + "; ".join(line)
@@ -340,15 +385,16 @@ def phase_reference():
     zero, so the loss is about mean(noise^2) and does not see the attention
     outputs (it agrees to the last bit)."""
     from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
-    from sd_lora_trainer_tpu_torch.models.synthesize import TINY_FLASH_SDXL_UNET_CONFIG
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG
     from sd_lora_trainer_tpu_torch.training.step import StepConfig
 
     tf32 = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    # head dim 64, so the flash kernels take every level (1024 and 256 tokens)
-    cpu = _build_run(TINY_FLASH_SDXL_UNET_CONFIG, "cpu", torch.float32, batch=2, latent_hw=64,
+    # the JAX package's tiny SDXL UNet (head dim 32): the flash kernels take
+    # its every transformer level (1024 and 256 tokens)
+    cpu = _build_run(TINY_SDXL_UNET_CONFIG, "cpu", torch.float32, batch=2, latent_hw=64,
                      rank=4, fuse=True)
     g = torch.Generator().manual_seed(2)
     shape = tuple(cpu["batch"]["latent_mean"].shape[1:])
@@ -1070,12 +1116,34 @@ def _cli_images(folder: str, seed: int) -> None:
             f.write(f"a painting of a landscape with hills number {i}")
 
 
+def _run_cli(cfg: dict, tmp: str, what: str, timeout: int) -> tuple:
+    """`python -m sd_lora_trainer_tpu_torch.main` on cfg, written into tmp and
+    run there: (its `[train-summary]` numbers, wall seconds). A non-zero exit
+    is fatal, with the tails of the trainer's stdout and stderr printed."""
+    from sd_lora_trainer_tpu_torch.main import SUMMARY_TAG
+
+    cfg_path = os.path.join(tmp, "cfg.json")
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "sd_lora_trainer_tpu_torch.main", cfg_path],
+                          cwd=tmp, capture_output=True, text=True, timeout=timeout,
+                          env={**os.environ, "PYTHONPATH": ROOT})
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        log(proc.stdout[-4000:])
+        log(proc.stderr[-4000:])
+    check(proc.returncode == 0, f"{what} exited {proc.returncode}")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(SUMMARY_TAG)]
+    check(len(lines) == 1, f"{what} printed no summary line")
+    return json.loads(lines[0][len(SUMMARY_TAG):]), wall
+
+
 def phase_cli():
     """The trainer's CLI end to end on a full-width SDXL checkpoint file;
     returns its `[train-summary]` numbers. Everything it writes lives in a
     temp dir under build/, removed after."""
     from sd_lora_trainer_tpu_torch import checkpoint as ck
-    from sd_lora_trainer_tpu_torch.main import SUMMARY_TAG
     from sd_lora_trainer_tpu_torch.models import clip
     from sd_lora_trainer_tpu_torch.models.lora import kohya_state_dict
     from sd_lora_trainer_tpu_torch.models.synthesize import synthesize_checkpoint
@@ -1103,21 +1171,7 @@ def phase_cli():
         cfg.update(lora_training_urls=data, ckpt_path=ckpt, output_dir=os.path.join(tmp, "runs"),
                    caption_model="no_caption", skip_gpt_cleanup=True, max_train_steps=CLI_STEPS,
                    checkpointing_steps=5, n_sample_imgs=2, validation_img_size=CLI_RES)
-        cfg_path = os.path.join(tmp, "cfg.json")
-        with open(cfg_path, "w") as f:
-            json.dump(cfg, f)
-        t0 = time.perf_counter()
-        proc = subprocess.run([sys.executable, "-m", "sd_lora_trainer_tpu_torch.main", cfg_path],
-                              cwd=tmp, capture_output=True, text=True, timeout=700,
-                              env={**os.environ, "PYTHONPATH": ROOT})
-        wall = time.perf_counter() - t0
-        if proc.returncode != 0:
-            log(proc.stdout[-4000:])
-            log(proc.stderr[-4000:])
-        check(proc.returncode == 0, f"the CLI trainer exited {proc.returncode}")
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(SUMMARY_TAG)]
-        check(len(lines) == 1, "the trainer printed no summary line")
-        summ = json.loads(lines[0][len(SUMMARY_TAG):])
+        summ, wall = _run_cli(cfg, tmp, "the CLI trainer", timeout=700)
 
         runs = os.listdir(os.path.join(tmp, "runs"))
         save_dir = os.path.join(tmp, "runs", runs[0], "checkpoints", f"checkpoint-{CLI_STEPS}")
@@ -1169,6 +1223,162 @@ def phase_cli():
                 "render_launches": {k: sum(r[k] for r in render_l) for k in train_l}}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the sd15 phase: the repo's published SD1.5 recipe through the CLI
+SD15_CONFIG = os.path.join(ROOT, "train_configs", "training_args_face_sd15.json")
+SD15_STEPS, SD15_IMAGES, SD15_RENDERS = 10, 8, 2
+# self-attention blocks of SD1.5's UNet that take the flash kernels: 5 at
+# each of the three transformer levels (2 down, 3 up); the mid block's
+# (144 tokens at 768px, 64 at 512px) stays plain, under the 256-token gate
+SD15_FLASH_BLOCKS = 15
+# a render call: 25 CFG Euler steps, cond and uncond in one batch
+SD15_RENDER_FWD = 25 * SD15_FLASH_BLOCKS
+
+
+def _face_images(folder: str, res: int, seed: int) -> None:
+    """SD15_IMAGES res^2 RGB PNGs with a caption each: a cool-toned smooth
+    field (blue over green, outside YCrCb's skin range) with one skin-toned
+    ellipse, the face the heuristic-skin backend finds, at a seeded place
+    and size in the upper-center of the frame."""
+    import numpy as np
+    from PIL import Image, ImageDraw
+
+    rs = np.random.RandomState(seed)
+    os.makedirs(folder, exist_ok=True)
+    for i in range(SD15_IMAGES):
+        coarse = rs.rand(6, 6, 3).astype(np.float32) * [60, 100, 90] + [20, 60, 130]
+        field = torch.nn.functional.interpolate(
+            torch.from_numpy(coarse).permute(2, 0, 1)[None], size=(res, res),
+            mode="bilinear", align_corners=False)[0].permute(1, 2, 0).numpy()
+        img = Image.fromarray(np.clip(field + rs.randn(res, res, 3) * 6, 0, 255).astype(np.uint8))
+        cx, cy = res * (0.4 + 0.2 * rs.rand()), res * (0.3 + 0.15 * rs.rand())
+        rx, ry = res * (0.12 + 0.05 * rs.rand()), res * (0.17 + 0.05 * rs.rand())
+        skin = tuple(int(c) for c in rs.randint(-12, 13, 3) + [222, 170, 140])
+        ImageDraw.Draw(img).ellipse((cx - rx, cy - ry, cx + rx, cy + ry), fill=skin)
+        img.save(os.path.join(folder, f"{i}.png"))
+        with open(os.path.join(folder, f"{i}.txt"), "w") as f:
+            f.write(f"a photo of a person, portrait number {i}")
+
+
+def phase_sd15():
+    """SD1.5 end to end: the published face recipe through the CLI on a
+    full-width SD1.5 fp16 checkpoint file; returns the flash launches of its
+    train steps and of its render. Everything it writes lives in a temp dir
+    under build/, removed after."""
+    from sd_lora_trainer_tpu_torch.models import clip
+    from sd_lora_trainer_tpu_torch.models.synthesize import synthesize_checkpoint
+    from sd_lora_trainer_tpu_torch.models.unet import SD15_UNET_CONFIG
+    from sd_lora_trainer_tpu_torch.models.vae import SD15_VAE_CONFIG
+    from sd_lora_trainer_tpu_torch.utils.safetensors_io import load_safetensors
+
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="sd15_", dir=os.path.join(ROOT, "build"))
+    try:
+        ckpt = os.path.join(tmp, "sd15_fp16.safetensors")
+        t0 = time.perf_counter()
+        synthesize_checkpoint(ckpt, "sd15", SD15_UNET_CONFIG, SD15_VAE_CONFIG, clip.CLIP_L_CONFIG,
+                              None, seed=0, dtype=torch.float16, device="cuda")
+        torch.cuda.empty_cache()
+        gb = os.path.getsize(ckpt) / 1e9
+        log(f"[sd15] wrote a full-width SD1.5 checkpoint (fp16, {gb:.2f} GB) in "
+            f"{time.perf_counter() - t0:.1f} s")
+        check(1.9 < gb < 2.3, f"the SD1.5 checkpoint holds {gb:.2f} GB, expected ~2.13")
+        with open(SD15_CONFIG) as f:
+            cfg = json.load(f)
+        res, bs, name = cfg["resolution"], cfg["train_batch_size"], cfg["name"]
+        data = os.path.join(tmp, "data")
+        _face_images(data, res, seed=0)
+        # the offline overrides alone: no captioner weights, a local folder, 10
+        # steps, 2 renders; the checkpoint file and where the run writes. Face
+        # mode's masks come from CLIPSeg prompted "face", whose weights are not
+        # on the machine (the masks would fall back to the full image): the
+        # face-detection chain (data/face_masks.py) stands in for it offline
+        cfg.update(caption_model="no_caption", lora_training_urls=data,
+                   max_train_steps=SD15_STEPS, n_sample_imgs=SD15_RENDERS, ckpt_path=ckpt,
+                   output_dir=os.path.join(tmp, "runs"), use_face_detection_instead=True)
+        summ, wall = _run_cli(cfg, tmp, "the SD1.5 CLI run", timeout=600)
+
+        runs = os.listdir(os.path.join(tmp, "runs"))
+        save_dir = os.path.join(tmp, "runs", runs[0], "checkpoints", f"checkpoint-{SD15_STEPS}")
+        files = sorted(os.listdir(save_dir))
+        lora_file, emb_file = f"{name}_sd15_lora.safetensors", f"{name}_sd15_embeddings.safetensors"
+        for want in (lora_file, emb_file, "special_params.json", "training_args.json"):
+            check(want in files, f"the SD1.5 run wrote {files}, without {want}")
+        check(any(f.startswith("validation_grid") for f in files), f"no validation grid in {files}")
+        with open(os.path.join(save_dir, "training_args.json")) as f:
+            args = json.load(f)
+        backend = args["training_attributes"].get("face_mask_backend")
+        check(backend is not None, "face mode chose no face-mask backend")
+        # the UNet LoRA keys and shapes of the JAX package's SD1.5 export at
+        # rank 16 (tests/golden/kohya_sd15_rank16.json, pinned on the CPU by
+        # tests/test_torch_export.py), read back from the file
+        with open(os.path.join(ROOT, "tests", "golden", "kohya_sd15_rank16.json")) as f:
+            golden = {k: v for k, v in json.load(f)["keys"].items() if k.startswith("lora_unet_")}
+        lora_sd = load_safetensors(os.path.join(save_dir, lora_file))
+        got = {k: list(v.shape) for k, v in lora_sd.items()}
+        check(got == golden, f"the SD1.5 LoRA's keys differ from the JAX export's: "
+              f"{sorted(set(got) ^ set(golden))[:6]}")
+        check(all(bool(torch.isfinite(v.float()).all()) for v in lora_sd.values()),
+              "non-finite values in the SD1.5 LoRA")
+        emb = {k: list(v.shape) for k, v in load_safetensors(os.path.join(save_dir, emb_file)).items()}
+        check(emb == {"clip_l": [3, 768]}, f"SD1.5 embeddings {emb}")
+        losses = summ["tot_loss"]
+        check(len(losses) == SD15_STEPS and all(math.isfinite(x) for x in losses),
+              f"SD1.5 losses {losses}")
+        train_l, render_l = summ["launches"]["train"], summ["launches"]["render"]
+        per_step = {k: v / summ["steps"] for k, v in train_l.items()}
+        check(per_step == {"flash_fwd": SD15_FLASH_BLOCKS, "flash_bwd": SD15_FLASH_BLOCKS},
+              f"SD1.5 flash launches a step {per_step}, expected {SD15_FLASH_BLOCKS} of each")
+        n_img = sum(summ["rendered_images"])
+        render = {k: sum(r[k] for r in render_l) for k in train_l}
+        check(n_img == SD15_RENDERS and render == {"flash_fwd": SD15_RENDER_FWD * len(render_l),
+                                                    "flash_bwd": 0},
+              f"SD1.5 render: {n_img} images, launches {render_l}")
+        enc = summ["vae_encode"]
+        log(f"[sd15] face recipe {os.path.basename(SD15_CONFIG)}: {res}px, bs {bs}, rank "
+            f"{cfg['lora_rank']}, TI {not cfg['disable_ti']}, concept_mode {cfg['concept_mode']}; "
+            f"trainer rc 0 in {wall:.1f} s; artifacts {files}")
+        degraded = [f"{d['stage']}: {d['got']}"
+                     for d in args["training_attributes"].get("degradations", [])]
+        log(f"[sd15] degradations the run recorded: {degraded}")
+        log(f"[sd15] load {summ['load_s']:.1f} s; preprocess {summ['preprocess_s']:.1f} s "
+            f"(face-mask backend {backend}); latent cache {summ['latent_cache_s']:.1f} s "
+            f"({enc['images']} images; VAE encode {enc['s']:.2f} s, peak {enc['peak_gib']:.2f} GiB)")
+        log(f"[sd15] loop {summ['s_per_step']:.3f} s/step over {summ['steps']} steps, peak "
+            f"{summ['loop_peak_gib']:.2f} GiB; losses {[round(x, 5) for x in losses]}")
+        log(f"[sd15] {len(got)} UNet LoRA keys as the JAX export's, embeddings {emb}; checkpoint "
+            f"{sum(summ['checkpoint_s']):.2f} s")
+        log(f"[sd15] render {sum(summ['render_s']) / n_img:.2f} s per image ({n_img} images at "
+            f"{res}px, 25 steps)")
+        log(f"[sd15] flash launches: train {train_l} ({SD15_FLASH_BLOCKS} + "
+            f"{SD15_FLASH_BLOCKS} a step), render {render} ({SD15_RENDER_FWD} a call)")
+        flops = _sd15_step_flops(res, bs)
+        log(f"[sd15] model FLOPs of the face recipe's step ({res}px, bs {bs}; bench.step_flops, "
+            f"remat off): {flops / 1e12:.3f} TF; {flops / summ['s_per_step'] / 1e12:.1f} TF/s at "
+            f"the loop's s/step")
+        return {"summary": summ, "train_launches": train_l, "render_launches": render,
+                "step_flops": flops}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _sd15_step_flops(res: int, bs: int) -> float:
+    """Model FLOPs of one SD1.5 LoRA+TI step at res and bs, counted as the
+    bench counts them (one row under FlopCounterMode, remat off, times B)."""
+    import numpy as np
+
+    from sd_lora_trainer_tpu_torch import bench
+
+    run = bench.setup(bench.Levers.from_env({"BENCH_MODEL": "sd15", "BENCH_RES": str(res),
+                                             "BENCH_BS": str(bs), "BENCH_REMAT": "off",
+                                             "BENCH_SCAN": "1"}))
+    try:
+        return bench.step_flops(run, run.batch(res // 8, res // 8, np.random.RandomState(0)))
+    finally:
+        del run
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 # phase 8: each run of the parallel code, launched by torchrun; the card is
@@ -1584,6 +1794,7 @@ FLOP_TOL = 1e-3  # the FLOP count with the flash ops vs with plain attention
 PROFILE_TOL = 1e-2  # the profiler's family totals, live vs the exported trace
 # the paths of phase 9 in `launches_by_path`; the render bench runs no backward
 TOOL_PATHS = {"bench": ("flash_fwd", "flash_bwd"), "bench_buckets": ("flash_fwd", "flash_bwd"),
+              "bench_sd15": ("flash_fwd", "flash_bwd"),
               "bench_inference": ("flash_fwd",), "convergence": ("flash_fwd", "flash_bwd")}
 
 
@@ -1608,7 +1819,8 @@ def _json_line(stdout: str, what: str) -> dict:
     return json.loads(lines[-1])
 
 
-def _bench_line(extra_env, what):
+def _bench_line(extra_env, what, step_launches=None):
+    step_launches = step_launches or TOOLS_STEP_LAUNCHES
     out, err, secs = _tool(["sd_lora_trainer_tpu_torch.bench"], extra_env)
     lines = [ln for ln in out.splitlines() if ln.strip()]
     check(len(lines) == 1, f"{what}: stdout holds {len(lines)} lines, not one JSON line")
@@ -1618,9 +1830,8 @@ def _bench_line(extra_env, what):
             log(f"[tools] {what}: {ln}")
     cfg = res["config"]
     check(res["value"] > 0, f"{what}: value {res['value']}")
-    check(cfg["flash_launches_per_step"] == TOOLS_STEP_LAUNCHES,
-          f"{what}: flash launches per step {cfg['flash_launches_per_step']} != "
-          f"{TOOLS_STEP_LAUNCHES}")
+    check(cfg["flash_launches_per_step"] == step_launches,
+          f"{what}: flash launches per step {cfg['flash_launches_per_step']} != {step_launches}")
     log(f"[tools] {what} in {secs:.1f} s: " + json.dumps(res))
     launches = {k: round(v * cfg["timed_steps"]) for k, v in cfg["flash_launches_per_step"].items()}
     return res, launches
@@ -1671,6 +1882,18 @@ def phase_tools() -> dict:
     per_bucket = buckets["config"]["s_per_step_by_bucket"]
     check(buckets["metric"] == "train_throughput_bucketed"
           and set(per_bucket) == set(TOOLS_BUCKETS.split(",")), f"bench_buckets: {per_bucket}")
+    # SD1.5 at the bench's defaults for it: 512px, bs=8, "auto" = no remat
+    # there, so each of the 15 flash blocks runs its forward once
+    sd15, by_path["bench_sd15"] = _bench_line(
+        {"BENCH_MODEL": "sd15"}, "bench_sd15",
+        {"flash_fwd": SD15_FLASH_BLOCKS, "flash_bwd": SD15_FLASH_BLOCKS})
+    cfg15 = sd15["config"]
+    check(sd15.get("mfu") is not None and 0 < sd15["mfu"] <= 1, f"bench_sd15: mfu {sd15.get('mfu')}")
+    check((cfg15["model"], cfg15["resolution"], cfg15["batch_size"], cfg15["remat"])
+          == ("sd15", 512, 8, False), f"bench_sd15: {cfg15}")
+    log(f"[tools] bench_sd15: {sd15['value']} imgs/s, MFU {sd15['mfu']:.2%}, busy "
+        f"{cfg15.get('busy_share', 0):.1%} of the timed step, peak {cfg15.get('peak_gib', 0):.2f} "
+        f"GiB, {cfg15['flops_per_step'] / 1e12:.3f} TF a step")
 
     flops = _flop_cross_check()
     per_step = bench["config"]["flops_per_step"]
@@ -1766,6 +1989,8 @@ def main() -> int:
     lap("optim")
     cli = phase_cli()
     lap("cli")
+    sd15 = phase_sd15()
+    lap("sd15")
     tools = phase_tools()
     lap("tools")
     parallel = phase_parallel()
@@ -1774,14 +1999,16 @@ def main() -> int:
     by_path = {f"train_{p}": r["launches"] for p, r in results.items()}
     by_path.update({path: optim[path]["launches"] for path in OPTIM_PATHS})
     by_path.update(cli_train=cli["train_launches"], cli_render=cli["render_launches"])
+    by_path.update(sd15_train=sd15["train_launches"], sd15_render=sd15["render_launches"])
     by_path.update(tools)
     by_path.update({run: parallel[run]["launches"] for run in PARALLEL_RUNS})
     entries = []
     for name, s in summary.items():
         bound, by = _bound_ms(s["flops"], s["bytes"])
         check(launches[name] > 0, f"{name} was never launched on the main path")
-        check(all(by_path[path][name] > 0 for path in OPTIM_PATHS + tuple(PARALLEL_RUNS)),
-              f"{name} was not launched on every optim and parallel path: {by_path}")
+        check(all(by_path[path][name] > 0 for path in OPTIM_PATHS + tuple(PARALLEL_RUNS)
+                  + ("sd15_train",)),
+              f"{name} was not launched on every optim, parallel and sd15 path: {by_path}")
         check(all(by_path[path][name] > 0 for path, names in TOOL_PATHS.items() if name in names),
               f"{name} was not launched on every tool path: {by_path}")
         entries.append({
@@ -1794,6 +2021,7 @@ def main() -> int:
             "library_ms": s["library_ms"], "library_call": LIBRARY_CALLS[name],
             "timing": TIMING,
             **({"dq_run_to_run_max_abs": s["dq_nondet"]} if "dq_nondet" in s else {}),
+            "cases": s["cases"],
         })
     log(json.dumps({"kernels": entries}))
     log(smi)

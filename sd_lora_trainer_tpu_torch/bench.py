@@ -189,8 +189,10 @@ def setup(levers: Levers) -> BenchRun:
     lv, dev = levers, levers.device
     sdxl = lv.model == "sdxl"
     if lv.tiny:
-        unet_cfg = unet_mod.TINY_SDXL_UNET_CONFIG if sdxl else unet_mod.TINY_SD15_UNET_CONFIG
         te1_cfg, te2_cfg = clip.TINY_CLIP_L_CONFIG, clip.TINY_CLIP_G_CONFIG
+        # the tiny SD1.5 UNet's cross-attention takes the tiny CLIP-L's width
+        unet_cfg = (unet_mod.TINY_SDXL_UNET_CONFIG if sdxl else dataclasses.replace(
+            unet_mod.TINY_SD15_UNET_CONFIG, cross_attention_dim=te1_cfg.hidden_size))
     else:
         unet_cfg = unet_mod.SDXL_UNET_CONFIG if sdxl else unet_mod.SD15_UNET_CONFIG
         te1_cfg, te2_cfg = clip.CLIP_L_CONFIG, clip.CLIP_BIG_G_CONFIG

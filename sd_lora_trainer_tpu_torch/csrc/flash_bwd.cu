@@ -13,21 +13,34 @@
 // bound it from L = 256 up.
 //
 // Design (the FA3 backward on sm_90a):
-// - One CTA per (key tile, head, batch), L on blockIdx.x. The key tile is
-//   BN = 64 keys per consumer warpgroup: 2 warpgroups (128 keys) for head
-//   dims up to 80, 1 for 160, whose dK and dV accumulators take 160 registers
-//   a thread. A producer warpgroup (one thread working, registers given to
-//   the consumers with setmaxnreg) loads K and V once by TMA and streams the
-//   Q, dO, lse and di tiles of each 64-row q step through a 2-stage mbarrier
-//   ring, so the loads of step i+1 overlap the products of step i.
-// - The five products run on wgmma (bf16 in, fp32 accumulate), per consumer
-//   warpgroup and its 64 keys: S^T = K Q^T and dP^T = V dO^T with K and V
-//   as A fragments kept in registers for the whole CTA (read from shared
-//   memory for d = 160, where registers run out); dV += P^T dO and
-//   dK += dS^T Q with P^T and dS^T from registers and dO, Q read transposed
-//   through the descriptor; dS^T goes to shared memory as bf16 and
-//   dQ_partial = dS K reads it transposed. Within a step the waits are
-//   staggered: P is computed while dP^T runs, and dS while dV runs.
+// - One CTA per (key tile, head, batch), L on blockIdx.x. A producer
+//   warpgroup (one thread working, its registers given to the consumers
+//   with setmaxnreg when there are two) loads K and V once by TMA and
+//   streams the Q, dO, lse and di tiles of each 64-row q step through a
+//   2-stage mbarrier ring, so the loads of step i+1 overlap the products of
+//   step i.
+// - Three tiers by padded head dim DP (BwdConfig), by what the dK and dV
+//   accumulators (DP registers a thread for 64 keys) leave room for:
+//   * DP <= 96: two consumer warpgroups of 64 keys each (128 a CTA), with K
+//     and V as A fragments kept in registers for the whole CTA up to DP = 80
+//     (read from shared memory at 96);
+//   * 112 <= DP <= 160: one consumer warpgroup of 64 keys, no setmaxnreg
+//     (255 registers; at 160 ptxas spills some);
+//   * DP > 160, the column split: 64 keys' dK and dV would take 176-256
+//     registers a thread, at or over the 255 limit. Two consumer warpgroups
+//     share one 64-key tile: warpgroup 0 computes S^T = K Q^T and P^T,
+//     warpgroup 1 dP^T = V dO^T and, from P^T, dS^T; each hands its result to
+//     the other through shared memory as bf16, and each then owns a column
+//     range of dK, dV and dQ (SPLIT_COLS, at most 128 columns, a multiple of
+//     the chunk width) and runs dV += P^T dO, dK += dS^T Q and dQ = dS K on
+//     its columns with both operands from shared memory.
+// - The five products run on wgmma (bf16 in, fp32 accumulate). In the key
+//   tiers, per consumer warpgroup and its 64 keys: S^T = K Q^T and
+//   dP^T = V dO^T (K and V as register A fragments, or from shared memory);
+//   dV += P^T dO and dK += dS^T Q with P^T and dS^T from registers and dO, Q
+//   read transposed through the descriptor; dS^T goes to shared memory as
+//   bf16 and dQ_partial = dS K reads it transposed. Within a step the waits
+//   are staggered: P is computed while dP^T runs, and dS while dV runs.
 // - dQ_partial is added to an fp32 accumulator of [B, H, L, round_up(d, 16)]
 //   floats straight from registers by 16-byte vector atomic adds (resolved in
 //   L2), each 64-row tile in the accumulator's register order
@@ -54,13 +67,24 @@ struct BwdParams {
 template <int DP>
 struct BwdConfig {
   static constexpr int CW = DP % 64 == 0 ? 64 : (DP % 32 == 0 ? 32 : 16);  // chunk width
-  static constexpr int NWG = DP > 96 ? 1 : 2;  // consumer warpgroups of 64 keys
-  static constexpr int BN = 64 * NWG, BM = 64, STAGES = 2;
+  // DP > 160: two consumer warpgroups split the columns of one 64-key tile
+  static constexpr bool SPLIT = DP > 160;
+  // consumer warpgroups: two of 64 keys each up to DP = 96, one to 160, two
+  // sharing 64 keys in the split
+  static constexpr int NWG = DP > 96 && !SPLIT ? 1 : 2;
+  static constexpr int BN = SPLIT ? 64 : 64 * NWG, BM = 64, STAGES = 2;
+  // K and V as wgmma A fragments in registers (DP / 2 a thread)
+  static constexpr bool KV_REGS = DP <= 80;
+  // the split's columns of warpgroup 0 (warpgroup 1 has the rest): a multiple
+  // of the chunk width, so every column piece starts on a chunk
+  static constexpr int SPLIT_COLS = (DP / 2 + CW - 1) / CW * CW;
   // consumer warpgroups first, then the producer warpgroup
   static constexpr int THREADS = 128 * (NWG + 1);
   static constexpr int KV_BYTES = BN * DP * 2;  // one of the K, V tiles
   static constexpr int QT_BYTES = BM * DP * 2;  // one Q or dO tile
-  static constexpr int DS_BYTES = 64 * BM * 2;  // dS^T of one warpgroup, bf16
+  // a [64][64] bf16 tile: dS^T of one warpgroup; in the split, P^T (the
+  // first) and dS^T (the second)
+  static constexpr int DS_BYTES = 64 * BM * 2;
   static constexpr int OFF_K = 0;
   static constexpr int OFF_V = OFF_K + KV_BYTES;
   static constexpr int OFF_Q = OFF_V + KV_BYTES;
@@ -70,82 +94,130 @@ struct BwdConfig {
   static constexpr int OFF_DI = OFF_LSE + STAGES * BM * 4;
   static constexpr int OFF_BAR = OFF_DI + STAGES * BM * 4;
   static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8;
+  static_assert(SMEM + 1024 <= 232448, "shared memory");  // + base alignment
+  static_assert(!SPLIT || (SPLIT_COLS <= 128 && DP - SPLIT_COLS > 0), "split columns");
 };
 
+// What the consumer warpgroups of one CTA share.
+struct BwdCta {
+  unsigned char* smem;  // 1024-byte aligned
+  uint64_t* bar_kv;
+  uint64_t* full;
+  uint64_t* empty;
+  long long row_base;  // (b * heads + h) * L: the rows of lse, di and dq_acc
+  int k0, nq, b, h;
+};
+
+// A q tile is live when some (query, key) pair of it and the key tile at k0
+// shares a segment.
+template <int BN, int BM>
+__device__ __forceinline__ bool q_tile_live(int q0, int k0, int vl) {
+  return vl == 0 || (k0 < vl && q0 < vl) || (k0 + BN > vl && q0 + BM > vl);
+}
+
+// acc, columns [N0, N0 + W) of a 64-row q tile in a consumer warpgroup's
+// accumulator layout, += into dq_acc at row0 (dq_acc_index): each warp adds
+// 512 contiguous bytes with 16-byte vector atomics
+template <int DP, int N0, int W>
+__device__ __forceinline__ void add_dq(const BwdParams& p, long long row0, int tid,
+                                       const float* acc) {
+  float* dst = p.dq_acc + row0 * DP + N0 * 64 + tid * 4;
+#pragma unroll
+  for (int j = 0; j < W / 8; ++j) {
+    atomicAdd(reinterpret_cast<float4*>(dst + j * 512),
+              make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
+  }
+}
+
+// Offset in a [64][64] bf16 tile of 128-byte rows (128B-swizzled, the
+// layout TMA writes and wgmma reads) of the pair that bf16 A-fragment word i
+// of k-step kc holds: f[4kc + i] = (row 16*warp + g + 8*(i%2), columns
+// 16kc + 8*(i/2) + 2t, +1).
+__device__ __forceinline__ uint32_t frag_tile_offset(int kc, int i, int warp, int g, int t) {
+  const int r = 16 * warp + g + 8 * (i & 1), c = 16 * kc + 8 * (i >> 1) + 2 * t;
+  return swizzle_offset(r * 128 + c * 2, 64);
+}
+
+// f[4kc + i] -> a [64][64] bf16 tile (frag_tile_offset), and back.
+template <int BM>
+__device__ __forceinline__ void store_frag_tile(unsigned char* tile, const uint32_t* f, int warp,
+                                                int g, int t) {
+#pragma unroll
+  for (int kc = 0; kc < BM / 16; ++kc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<uint32_t*>(tile + frag_tile_offset(kc, i, warp, g, t)) = f[4 * kc + i];
+  }
+}
+
+template <int BM>
+__device__ __forceinline__ void load_frag_tile(const unsigned char* tile, uint32_t* f, int warp,
+                                               int g, int t) {
+#pragma unroll
+  for (int kc = 0; kc < BM / 16; ++kc) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      f[4 * kc + i] = *reinterpret_cast<const uint32_t*>(tile + frag_tile_offset(kc, i, warp, g, t));
+  }
+}
+
+// In the accumulator layout of a [64 keys, BM q] tile (register 4j+e holds
+// key row 16*warp + g + 8*(e/2), q column 8j + 2t + e%2):
+// S^T -> P^T = exp(sm_scale * S^T - lse) in place, 0 where the segment mask
+// removes the pair (kreal: the thread's two keys are real; `whole`: no pair
+// of the tile is masked).
+template <int BM>
+__device__ __forceinline__ void probs_t(float* st, const float* lse, float sl2, bool whole,
+                                        int vl, const bool* kreal, int q0, int t) {
+  if (whole) {
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        st[4 * j + e] = exp2_approx(st[4 * j + e] * sl2 - lse[qc] * FLASH_LOG2E);
+      }
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int qc = 8 * j + 2 * t + (e & 1);
+        const bool masked = seg_masked(vl, kreal[e >> 1], q0 + qc);
+        st[4 * j + e] = masked ? 0.f : exp2_approx(st[4 * j + e] * sl2 - lse[qc] * FLASH_LOG2E);
+      }
+    }
+  }
+}
+
+// dP^T -> dS^T = P^T * (dP^T - di) in place, with P^T from its bf16 pairs pf
+// (pf[i] holds registers 2i, 2i+1), so the fp32 P^T need not stay live.
+template <int BM>
+__device__ __forceinline__ void grad_scores_t(float* dpt, const uint32_t* pf, const float* di,
+                                              int t) {
+#pragma unroll
+  for (int j = 0; j < BM / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int qc = 8 * j + 2 * t + (e & 1);
+      const uint32_t pair = pf[2 * j + (e >> 1)];
+      const float pv = __uint_as_float((e & 1) ? (pair & 0xFFFF0000u) : (pair << 16));
+      dpt[4 * j + e] = pv * (dpt[4 * j + e] - di[qc]);
+    }
+  }
+}
+
+// Consumers of the key tiers (DP <= 160): warpgroup w owns keys
+// k0 + 64w .. k0 + 64w + 63 and all DP columns of their dK and dV.
 template <typename T, int DP>
-__global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
-    flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
-                     const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v,
-                     const __grid_constant__ CUtensorMap tm_do, const BwdParams p) {
+__device__ __forceinline__ void bwd_consumer_keys(const BwdCta& cta, const BwdParams& p) {
   using C = BwdConfig<DP>;
-  constexpr int CW = C::CW, NC = DP / CW, BN = C::BN, BM = C::BM, S = C::STAGES;
-  constexpr int NWG = C::NWG;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
-  uint64_t* full = bar_kv + 1;
-  uint64_t* empty = full + S;
-  float* s_lse = reinterpret_cast<float*>(smem + C::OFF_LSE);
-  float* s_di = reinterpret_cast<float*>(smem + C::OFF_DI);
-
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
-  const int L = p.len, vl = p.valid_len, k0 = kt * BN;
-  const long long row_base = ((long long)b * p.heads + h) * L;
-  if (threadIdx.x == 0) {
-    mbar_init(bar_kv, 1);
-    for (int s = 0; s < S; ++s) {
-      mbar_init(&full[s], 1);
-      mbar_init(&empty[s], NWG * 128);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  // A q tile is live when some (query, key) pair of it and this key tile
-  // shares a segment.
-  const bool k_real = k0 < vl, k_pad = k0 + BN > vl;
-  auto live = [&](int q0) {
-    return vl == 0 || (k_real && q0 < vl) || (k_pad && q0 + BM > vl);
-  };
-  const int nq = L / BM;
-
-  if (threadIdx.x >= 128 * NWG) {  // producer warpgroup: one thread loads
-    if constexpr (NWG > 1) setmaxnreg_dec<24>();
-    if (threadIdx.x == 128 * NWG) {
-      mbar_expect_tx(bar_kv, 2 * C::KV_BYTES);
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        tma_load_4d(smem + C::OFF_K + c * BN * CW * 2, &tm_k, bar_kv, c * CW, k0, h, b);
-        tma_load_4d(smem + C::OFF_V + c * BN * CW * 2, &tm_v, bar_kv, c * CW, k0, h, b);
-      }
-      int it = 0;
-      for (int qi = 0; qi < nq; ++qi) {
-        if (!live(qi * BM)) continue;
-        const int s = it % S;
-        mbar_wait<true>(&empty[s], ((it / S) & 1) ^ 1);
-        mbar_expect_tx(&full[s], 2 * C::QT_BYTES + 2 * BM * 4);
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          tma_load_4d(smem + C::OFF_Q + s * C::QT_BYTES + c * BM * CW * 2, &tm_q, &full[s], c * CW,
-                      qi * BM, h, b);
-          tma_load_4d(smem + C::OFF_DO + s * C::QT_BYTES + c * BM * CW * 2, &tm_do, &full[s],
-                      c * CW, qi * BM, h, b);
-        }
-        bulk_load(s_lse + s * BM, p.lse + row_base + qi * BM, BM * 4, &full[s]);
-        bulk_load(s_di + s * BM, p.di + row_base + qi * BM, BM * 4, &full[s]);
-        ++it;
-      }
-      // the watchdog of the consumers (their waits do not trap): stay until
-      // they have released every stage of the ring
-      for (int j = it; j < it + S; ++j) mbar_wait<true>(&empty[j % S], ((j / S) & 1) ^ 1);
-    }
-    return;
-  }
-
-  // consumers: warpgroup w owns keys k0 + 64w .. k0 + 64w + 63
-  if constexpr (NWG > 1) setmaxnreg_inc<240>();
+  constexpr int CW = C::CW, BN = C::BN, BM = C::BM, S = C::STAGES;
+  unsigned char* smem = cta.smem;
+  const float* s_lse = reinterpret_cast<const float*>(smem + C::OFF_LSE);
+  const float* s_di = reinterpret_cast<const float*>(smem + C::OFF_DI);
+  const int vl = p.valid_len, k0 = cta.k0;
   const int w = threadIdx.x / 128, tid = threadIdx.x % 128;
   const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
   const int kw = 64 * w;
@@ -169,28 +241,17 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
       Wgmma<W>::template ss<1, 1>(acc, da, db, kk > 0);
     }
   };
-  // acc += into dq_acc in its layout (dq_acc_index): each warp adds 512
-  // contiguous bytes with 16-byte vector atomics
-  auto add_dq = [&](auto n0c, auto wc, const float* acc, int qi) {
-    constexpr int N0 = decltype(n0c)::value, W = decltype(wc)::value;
-    float* dst = p.dq_acc + (row_base + qi * BM) * DP + N0 * 64 + tid * 4;
-#pragma unroll
-    for (int j = 0; j < W / 8; ++j) {
-      atomicAdd(reinterpret_cast<float4*>(dst + j * 512),
-                make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
-    }
-  };
 
   float dk[DP / 2], dv[DP / 2];
 #pragma unroll
   for (int i = 0; i < DP / 2; ++i) dk[i] = dv[i] = 0.f;
   uint32_t pf[BM / 4], df[BM / 4];  // bf16 P^T and dS^T as wgmma A fragments
 
-  mbar_wait(bar_kv, 0);
+  mbar_wait(cta.bar_kv, 0);
   // K_w and V_w as wgmma A fragments (k-step kk: columns 16kk..16kk+15),
-  // read once from the swizzled tiles; at d = 160 (one warpgroup, its dK and
-  // dV already near the 255-register limit) they stay in shared memory
-  constexpr bool KV_REGS = NWG > 1;
+  // read once from the swizzled tiles; from DP = 96 (dK and dV take DP
+  // registers a thread) they stay in shared memory
+  constexpr bool KV_REGS = C::KV_REGS;
   constexpr int KVF = KV_REGS ? DP / 4 : 1;
   uint32_t kf[KVF], vf[KVF];
   if constexpr (KV_REGS) {
@@ -207,10 +268,10 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
     }
   }
   int it = 0;
-  for (int qi = 0; qi < nq; ++qi) {
-    if (!live(qi * BM)) continue;
+  for (int qi = 0; qi < cta.nq; ++qi) {
+    if (!q_tile_live<BN, BM>(qi * BM, k0, vl)) continue;
     const int s = it % S;
-    mbar_wait(&full[s], (it / S) & 1);
+    mbar_wait(&cta.full[s], (it / S) & 1);
     const uint32_t s_q = smem_u32(smem + C::OFF_Q + s * C::QT_BYTES);
     const uint32_t s_do = smem_u32(smem + C::OFF_DO + s * C::QT_BYTES);
     const float* lse = s_lse + s * BM;
@@ -252,27 +313,8 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
     wgmma_wait<1>();  // S^T is done; dP^T may still run
     fence_regs<BM / 2>(st);
     const int q0 = qi * BM;
-    if (vl == 0 || (wg_real && q0 + BM <= vl) || (wg_pad && q0 >= vl)) {  // no pair masked
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = 8 * j + 2 * t + (e & 1);
-          st[4 * j + e] = exp2_approx(st[4 * j + e] * sl2 - lse[qc] * FLASH_LOG2E);
-        }
-      }
-    } else {
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int qc = 8 * j + 2 * t + (e & 1);
-          const bool masked = seg_masked(vl, kreal[e >> 1], q0 + qc);
-          st[4 * j + e] =
-              masked ? 0.f : exp2_approx(st[4 * j + e] * sl2 - lse[qc] * FLASH_LOG2E);
-        }
-      }
-    }
+    probs_t<BM>(st, lse, sl2, vl == 0 || (wg_real && q0 + BM <= vl) || (wg_pad && q0 >= vl), vl,
+                kreal, q0, t);
 #pragma unroll
     for (int i = 0; i < BM / 4; ++i) pf[i] = pack_bf16(st[2 * i], st[2 * i + 1]);
 
@@ -290,17 +332,7 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
     wgmma_commit();
     wgmma_wait<1>();  // dP^T is done; dV may still run
     fence_regs<BM / 2>(dpt);
-    // dS from the bf16 P of the fragments, so the fp32 P^T is not kept live
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int qc = 8 * j + 2 * t + (e & 1);
-        const uint32_t pair = pf[2 * j + (e >> 1)];
-        const float pv = __uint_as_float((e & 1) ? (pair & 0xFFFF0000u) : (pair << 16));
-        dpt[4 * j + e] = pv * (dpt[4 * j + e] - di[qc]);
-      }
-    }
+    grad_scores_t<BM>(dpt, pf, di, t);
 #pragma unroll
     for (int i = 0; i < BM / 4; ++i) df[i] = pack_bf16(dpt[2 * i], dpt[2 * i + 1]);
 
@@ -319,39 +351,31 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
 
     // dS^T -> shared memory as [64 keys][64 q] bf16, 128B-swizzled rows: the
     // MN-major A operand of dQ = dS K
-#pragma unroll
-    for (int kc = 0; kc < BM / 16; ++kc) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int r = 16 * warp + g + 8 * (i & 1);
-        const int c = 16 * kc + 8 * (i >> 1) + 2 * t;
-        *reinterpret_cast<uint32_t*>(ds_tile + swizzle_offset(r * 128 + c * 2, 64)) =
-            df[4 * kc + i];
-      }
-    }
+    store_frag_tile<BM>(ds_tile, df, warp, g, t);
     fence_proxy_async();
     named_barrier(1 + w, 128);
 
     // dQ_partial = dS K_w, one column piece at a time, each added once done
     Pieces<0, DP>::run([&](auto n0c, auto wc) {
-      float acc[decltype(wc)::value / 2];
+      constexpr int N0 = decltype(n0c)::value, W = decltype(wc)::value;
+      float acc[W / 2];
       wgmma_fence();
       issue_dq(n0c, wc, acc);
       wgmma_commit();
       wgmma_wait<0>();
-      fence_regs<decltype(wc)::value / 2>(acc);
-      add_dq(n0c, wc, acc, qi);
+      fence_regs<W / 2>(acc);
+      add_dq<DP, N0, W>(p, cta.row_base + q0, tid, acc);
     });
     fence_regs<BM / 4>(pf);  // A fragments stay put until their wgmmas are done
     fence_regs<BM / 4>(df);
-    mbar_arrive(&empty[s]);  // every product reading this stage has completed
+    mbar_arrive(&cta.empty[s]);  // every product reading this stage has completed
     ++it;
   }
   fence_regs<DP / 2>(dk);
   fence_regs<DP / 2>(dv);
 
-  T* dk_out = static_cast<T*>(p.dk) + b * p.sdk.b + h * p.sdk.h;
-  T* dv_out = static_cast<T*>(p.dv) + b * p.sdv.b + h * p.sdv.h;
+  T* dk_out = static_cast<T*>(p.dk) + cta.b * p.sdk.b + cta.h * p.sdk.h;
+  T* dv_out = static_cast<T*>(p.dv) + cta.b * p.sdv.b + cta.h * p.sdv.h;
   const float sc = p.sm_scale;
 #pragma unroll
   for (int j = 0; j < DP / 8; ++j) {
@@ -365,18 +389,240 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
   }
 }
 
+// Consumers of the split tier (DP > 160): both warpgroups work on keys
+// k0 .. k0 + 63. ROLE 0 computes S^T and P^T, ROLE 1 dP^T and dS^T; the two
+// hand P^T and dS^T over through shared memory, and ROLE r then owns
+// columns [N0, N0 + NW) of dK, dV and dQ.
+template <typename T, int DP, int ROLE>
+__device__ __forceinline__ void bwd_consumer_split(const BwdCta& cta, const BwdParams& p) {
+  using C = BwdConfig<DP>;
+  constexpr int CW = C::CW, BN = C::BN, BM = C::BM, S = C::STAGES;
+  constexpr int N0 = ROLE == 0 ? 0 : C::SPLIT_COLS;
+  constexpr int NW = ROLE == 0 ? C::SPLIT_COLS : DP - C::SPLIT_COLS;
+  unsigned char* smem = cta.smem;
+  const float* s_lse = reinterpret_cast<const float*>(smem + C::OFF_LSE);
+  const float* s_di = reinterpret_cast<const float*>(smem + C::OFF_DI);
+  const int vl = p.valid_len, k0 = cta.k0;
+  const int tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  const int key_a = k0 + 16 * warp + g, key_b = key_a + 8;
+  const bool kreal[2] = {key_a < vl, key_b < vl};
+  const bool all_real = k0 + BN <= vl, all_pad = k0 >= vl;
+  const float sl2 = p.sm_scale * FLASH_LOG2E;
+  const uint32_t s_k = smem_u32(smem + C::OFF_K), s_v = smem_u32(smem + C::OFF_V);
+  unsigned char* p_tile = smem + C::OFF_DS;  // P^T, bf16 [64 keys][64 q]
+  unsigned char* ds_tile = p_tile + C::DS_BYTES;  // dS^T, the same layout
+  const uint32_t s_p = smem_u32(p_tile), s_ds = smem_u32(ds_tile);
+  constexpr uint32_t SBO = 8 * CW * 2;  // 8-row group stride of every chunked tile
+
+  float dk[NW / 2], dv[NW / 2];
+#pragma unroll
+  for (int i = 0; i < NW / 2; ++i) dk[i] = dv[i] = 0.f;
+  uint32_t f[BM / 4];  // bf16 P^T or dS^T pairs, in A-fragment order
+
+  mbar_wait(cta.bar_kv, 0);
+  int it = 0;
+  for (int qi = 0; qi < cta.nq; ++qi) {
+    const int q0 = qi * BM;
+    if (!q_tile_live<BN, BM>(q0, k0, vl)) continue;
+    const int s = it % S;
+    mbar_wait(&cta.full[s], (it / S) & 1);
+    const uint32_t s_q = smem_u32(smem + C::OFF_Q + s * C::QT_BYTES);
+    const uint32_t s_do = smem_u32(smem + C::OFF_DO + s * C::QT_BYTES);
+
+    // ROLE 0: S^T = K Q^T; ROLE 1: dP^T = V dO^T ([64 keys, 64 q], K-major).
+    // Accumulator layout: register 4j+e holds key row 16*warp + g + 8*(e/2),
+    // q column 8j + 2t + e%2.
+    float acc[BM / 2];
+    const uint32_t s_a = ROLE == 0 ? s_k : s_v, s_b = ROLE == 0 ? s_q : s_do;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DP / 16; ++kk) {
+      const uint32_t col = (kk * 16) / CW, within = (kk * 16) % CW * 2;
+      Wgmma<BM>::template ss<0, 0>(acc, gmma_desc(s_a + col * BN * CW * 2 + within, 16, SBO, CW),
+                                   gmma_desc(s_b + col * BM * CW * 2 + within, 16, SBO, CW),
+                                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs<BM / 2>(acc);
+    if constexpr (ROLE == 0) {
+      probs_t<BM>(acc, s_lse + s * BM, sl2,
+                  vl == 0 || (all_real && q0 + BM <= vl) || (all_pad && q0 >= vl), vl, kreal, q0,
+                  t);
+#pragma unroll
+      for (int i = 0; i < BM / 4; ++i) f[i] = pack_bf16(acc[2 * i], acc[2 * i + 1]);
+      store_frag_tile<BM>(p_tile, f, warp, g, t);
+      fence_proxy_async();
+      named_barrier(1, 256);  // P^T is in shared memory
+    } else {
+      named_barrier(1, 256);  // P^T is in shared memory
+      load_frag_tile<BM>(p_tile, f, warp, g, t);
+      grad_scores_t<BM>(acc, f, s_di + s * BM, t);
+#pragma unroll
+      for (int i = 0; i < BM / 4; ++i) f[i] = pack_bf16(acc[2 * i], acc[2 * i + 1]);
+      store_frag_tile<BM>(ds_tile, f, warp, g, t);
+      fence_proxy_async();
+    }
+
+    // dV[:, N0 : N0 + NW] += P^T dO (P^T K-major from its tile, dO MN-major)
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BM / 16; ++kc) {
+      Pieces<N0, NW>::run([&](auto n0c, auto wc) {
+        constexpr int PN = decltype(n0c)::value, W = decltype(wc)::value;
+        const uint32_t off = (PN / CW) * BM * CW * 2 + kc * 16 * CW * 2;
+        Wgmma<W>::template ss<0, 1>(dv + (PN - N0) / 2, gmma_desc(s_p + kc * 32, 16, 1024, 64),
+                                    gmma_desc(s_do + off, BM * CW * 2, SBO, CW), 1);
+      });
+    }
+    wgmma_commit();
+    named_barrier(2, 256);  // dS^T is in shared memory
+
+    // dK[:, N0 : N0 + NW] += dS^T Q
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < BM / 16; ++kc) {
+      Pieces<N0, NW>::run([&](auto n0c, auto wc) {
+        constexpr int PN = decltype(n0c)::value, W = decltype(wc)::value;
+        const uint32_t off = (PN / CW) * BM * CW * 2 + kc * 16 * CW * 2;
+        Wgmma<W>::template ss<0, 1>(dk + (PN - N0) / 2, gmma_desc(s_ds + kc * 32, 16, 1024, 64),
+                                    gmma_desc(s_q + off, BM * CW * 2, SBO, CW), 1);
+      });
+    }
+    wgmma_commit();
+
+    // dQ_partial[:, N0 : N0 + NW] = dS K (dS^T read MN-major, K MN-major),
+    // one column piece at a time, each added once done
+    Pieces<N0, NW>::run([&](auto n0c, auto wc) {
+      constexpr int PN = decltype(n0c)::value, W = decltype(wc)::value;
+      float dq[W / 2];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        const uint64_t da = gmma_desc(s_ds + kk * 16 * 128, 64 * 128, 1024, 64);
+        const uint64_t db =
+            gmma_desc(s_k + (PN / CW) * BN * CW * 2 + 16 * kk * CW * 2, BN * CW * 2, SBO, CW);
+        Wgmma<W>::template ss<1, 1>(dq, da, db, kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs<W / 2>(dq);
+      add_dq<DP, PN, W>(p, cta.row_base + q0, tid, dq);
+    });
+    fence_regs<BM / 4>(f);
+    // every product reading this stage and both handover tiles has completed
+    // in both warpgroups before either writes a tile again
+    named_barrier(3, 256);
+    mbar_arrive(&cta.empty[s]);
+    ++it;
+  }
+  fence_regs<NW / 2>(dk);
+  fence_regs<NW / 2>(dv);
+
+  T* dk_out = static_cast<T*>(p.dk) + cta.b * p.sdk.b + cta.h * p.sdk.h;
+  T* dv_out = static_cast<T*>(p.dv) + cta.b * p.sdv.b + cta.h * p.sdv.h;
+  const float sc = p.sm_scale;
+  const int d = p.head_dim;
+#pragma unroll
+  for (int j = 0; j < NW / 8; ++j) {
+    const int col = N0 + 8 * j + 2 * t;
+    if (col < d) {
+      store2(dk_out + key_a * p.sdk.l + col, dk[4 * j] * sc, dk[4 * j + 1] * sc);
+      store2(dk_out + key_b * p.sdk.l + col, dk[4 * j + 2] * sc, dk[4 * j + 3] * sc);
+      store2(dv_out + key_a * p.sdv.l + col, dv[4 * j], dv[4 * j + 1]);
+      store2(dv_out + key_b * p.sdv.l + col, dv[4 * j + 2], dv[4 * j + 3]);
+    }
+  }
+}
+
+template <typename T, int DP>
+__global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
+    flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q,
+                     const __grid_constant__ CUtensorMap tm_k,
+                     const __grid_constant__ CUtensorMap tm_v,
+                     const __grid_constant__ CUtensorMap tm_do, const BwdParams p) {
+  using C = BwdConfig<DP>;
+  constexpr int CW = C::CW, NC = DP / CW, BN = C::BN, BM = C::BM, S = C::STAGES;
+  constexpr int NWG = C::NWG;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
+  uint64_t* full = bar_kv + 1;
+  uint64_t* empty = full + S;
+  float* s_lse = reinterpret_cast<float*>(smem + C::OFF_LSE);
+  float* s_di = reinterpret_cast<float*>(smem + C::OFF_DI);
+
+  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  const int L = p.len, vl = p.valid_len, k0 = kt * BN;
+  const long long row_base = ((long long)b * p.heads + h) * L;
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], NWG * 128);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+  const int nq = L / BM;
+
+  if (threadIdx.x >= 128 * NWG) {  // producer warpgroup: one thread loads
+    if constexpr (NWG > 1) setmaxnreg_dec<24>();
+    if (threadIdx.x == 128 * NWG) {
+      mbar_expect_tx(bar_kv, 2 * C::KV_BYTES);
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        tma_load_4d(smem + C::OFF_K + c * BN * CW * 2, &tm_k, bar_kv, c * CW, k0, h, b);
+        tma_load_4d(smem + C::OFF_V + c * BN * CW * 2, &tm_v, bar_kv, c * CW, k0, h, b);
+      }
+      int it = 0;
+      for (int qi = 0; qi < nq; ++qi) {
+        if (!q_tile_live<BN, BM>(qi * BM, k0, vl)) continue;
+        const int s = it % S;
+        mbar_wait<true>(&empty[s], ((it / S) & 1) ^ 1);
+        mbar_expect_tx(&full[s], 2 * C::QT_BYTES + 2 * BM * 4);
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          tma_load_4d(smem + C::OFF_Q + s * C::QT_BYTES + c * BM * CW * 2, &tm_q, &full[s], c * CW,
+                      qi * BM, h, b);
+          tma_load_4d(smem + C::OFF_DO + s * C::QT_BYTES + c * BM * CW * 2, &tm_do, &full[s],
+                      c * CW, qi * BM, h, b);
+        }
+        bulk_load(s_lse + s * BM, p.lse + row_base + qi * BM, BM * 4, &full[s]);
+        bulk_load(s_di + s * BM, p.di + row_base + qi * BM, BM * 4, &full[s]);
+        ++it;
+      }
+      // the watchdog of the consumers (their waits do not trap): stay until
+      // they have released every stage of the ring
+      for (int j = it; j < it + S; ++j) mbar_wait<true>(&empty[j % S], ((j / S) & 1) ^ 1);
+    }
+    return;
+  }
+
+  if constexpr (NWG > 1) setmaxnreg_inc<240>();
+  const BwdCta cta{smem, bar_kv, full, empty, row_base, k0, nq, b, h};
+  if constexpr (C::SPLIT) {
+    if (threadIdx.x < 128) {
+      bwd_consumer_split<T, DP, 0>(cta, p);
+    } else {
+      bwd_consumer_split<T, DP, 1>(cta, p);
+    }
+  } else {
+    bwd_consumer_keys<T, DP>(cta, p);
+  }
+}
+
 // Index of (row r, column c) of a 64-row q tile in its block of 64 * DP
 // floats of dq_acc: the order in which a consumer warpgroup's wgmma
-// accumulator holds the tile, column piece by column piece (Pieces), so that
-// each warp adds it with 16-byte atomics on 512 contiguous bytes.
-template <int DP>
+// accumulator holds the tile, 8 columns (one n8 tile, 512 floats) after
+// another whatever the column pieces, so that each warp adds a piece with
+// 16-byte atomics on 512 contiguous bytes (add_dq).
 __device__ __forceinline__ int dq_acc_index(int r, int c) {
-  constexpr int FULL = DP / 64 * 64, REM = DP - FULL;
-  const int n0 = c < FULL ? c / 64 * 64 : (REM >= 32 && c >= FULL + 32 ? FULL + 32 : FULL);
-  const int j = (c - n0) >> 3, t = ((c - n0) & 7) >> 1;
-  const int tid = (r >> 4) * 32 + (r & 7) * 4 + t;
+  const int tid = (r >> 4) * 32 + (r & 7) * 4 + ((c & 7) >> 1);
   const int e = ((r >> 3) & 1) * 2 + (c & 1);
-  return n0 * 64 + j * 512 + tid * 4 + e;
+  return (c >> 3) * 512 + tid * 4 + e;
 }
 
 // dq = sm_scale * dq_acc in dq's dtype and strides; one thread per pair.
@@ -391,7 +637,7 @@ __global__ void flash_bwd_dq_convert_kernel(const float* acc, T* dq, FlashStride
   const int h = (int)((row / len) % heads);
   const long long b = row / ((long long)len * heads);
   const float* tile = acc + (row - (l & 63)) * DP;
-  const float2 v = *reinterpret_cast<const float2*>(tile + dq_acc_index<DP>(l & 63, col));
+  const float2 v = *reinterpret_cast<const float2*>(tile + dq_acc_index(l & 63, col));
   store2(dq + b * s.b + h * s.h + (long long)l * s.l + col, v.x * scale, v.y * scale);
 }
 
@@ -437,6 +683,8 @@ static int launch_bwd(const FlashArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int flash_bwd(const FlashArgs* args, void* stream) {
-  FLASH_DISPATCH(launch_bwd, *args, (cudaStream_t)stream);
-}
+#ifdef FLASH_DP
+FLASH_DEFINE_DP(flash_bwd, launch_bwd, FLASH_DP)
+#else
+FLASH_DISPATCH(flash_bwd)
+#endif

@@ -10,8 +10,10 @@
 //   lse, di: fp32 [B, H, L], contiguous; acc (backward): fp32
 //     [B, H, L, round_up(d, 16)], contiguous and zeroed.
 //   L is a multiple of 128, the rows both kernels tile at; d is a multiple of
-//     8 with round_up(d, 16) in {48, 64, 80, 160} (SD head dims 40, 64, 80,
-//     160); TMA reads columns d..round_up(d, 16)-1 as zeros.
+//     8 from 8 to 256, and the kernels are instantiated for every padded head
+//     dim DP = round_up(d, 16) from 16 to 256 (FLASH_HEAD_DIMS); TMA reads
+//     columns d..DP-1 as zeros. A head dim that is not a multiple of 8 is
+//     zero-padded to one by the Python wrappers (TMA needs 16-byte strides).
 //   Segment mask: with valid_len > 0, token i has segment id (i < valid_len).
 //     A query attends a key only when both have the same id, so pad rows
 //     attend only to pad keys and stay finite.
@@ -72,17 +74,39 @@ __device__ __forceinline__ bool seg_masked(int valid_len, bool q_real, int key) 
   return valid_len > 0 && (q_real != (key < valid_len));
 }
 
-// Dispatch a launcher template over the output type and padded head dim.
-#define FLASH_DISPATCH(LAUNCH, args, stream)                                  \
-  do {                                                                        \
-    const int dp = ((args).head_dim + 15) / 16 * 16;                          \
-    const bool bf = (args).dtype == 0;                                        \
-    if ((args).head_dim % 8 != 0 || (args).len % 128 != 0) return (int)cudaErrorInvalidValue; \
-    switch (dp) {                                                             \
-      case 48: return bf ? LAUNCH<bf16, 48>(args, stream) : LAUNCH<float, 48>(args, stream);   \
-      case 64: return bf ? LAUNCH<bf16, 64>(args, stream) : LAUNCH<float, 64>(args, stream);   \
-      case 80: return bf ? LAUNCH<bf16, 80>(args, stream) : LAUNCH<float, 80>(args, stream);   \
-      case 160: return bf ? LAUNCH<bf16, 160>(args, stream) : LAUNCH<float, 160>(args, stream); \
-      default: return (int)cudaErrorInvalidValue;                             \
-    }                                                                         \
-  } while (0)
+// Every padded head dim DP = round_up(d, 16) the kernels are built for.
+#define FLASH_HEAD_DIMS(X, NAME)                                                              \
+  X(NAME, 16) X(NAME, 32) X(NAME, 48) X(NAME, 64) X(NAME, 80) X(NAME, 96) X(NAME, 112)         \
+  X(NAME, 128) X(NAME, 144) X(NAME, 160) X(NAME, 176) X(NAME, 192) X(NAME, 208) X(NAME, 224) \
+  X(NAME, 240) X(NAME, 256)
+
+// A kernel source builds as one translation unit per DP (nvcc -DFLASH_DP=<DP>,
+// which defines NAME_dp<DP> for both output types: FLASH_DEFINE_DP) and one
+// without FLASH_DP that defines the exported NAME, the dispatch over every DP
+// (FLASH_DISPATCH). ops/kernels.py compiles the units in parallel and links
+// them into one library per kernel.
+#define FLASH_DEFINE_DP(NAME, LAUNCH, DP) FLASH_DEFINE_DP_(NAME, LAUNCH, DP)
+#define FLASH_DEFINE_DP_(NAME, LAUNCH, DP)                                       \
+  int NAME##_dp##DP(const FlashArgs* a, cudaStream_t stream) {                   \
+    return a->dtype == 0 ? LAUNCH<bf16, DP>(*a, stream) : LAUNCH<float, DP>(*a, stream); \
+  }
+
+#define FLASH_DECLARE_DP(NAME, DP) int NAME##_dp##DP(const FlashArgs*, cudaStream_t);
+#define FLASH_CASE_DP(NAME, DP) \
+  case DP:                      \
+    return NAME##_dp##DP(args, stream);
+
+#define FLASH_DISPATCH(NAME)                                                          \
+  FLASH_HEAD_DIMS(FLASH_DECLARE_DP, NAME)                                             \
+  extern "C" int NAME(const FlashArgs* args, void* stream_ptr) {                      \
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);                \
+    const int d = args->head_dim;                                                     \
+    if (d < 8 || d > 256 || d % 8 != 0 || args->len % 128 != 0 || args->dtype < 0 || \
+        args->dtype > 1)                                                              \
+      return (int)cudaErrorInvalidValue;                                              \
+    switch ((d + 15) / 16 * 16) {                                                     \
+      FLASH_HEAD_DIMS(FLASH_CASE_DP, NAME)                                            \
+      default:                                                                        \
+        return (int)cudaErrorInvalidValue;                                            \
+    }                                                                                 \
+  }

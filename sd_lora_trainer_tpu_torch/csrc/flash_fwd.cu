@@ -24,10 +24,14 @@
 //   tiles of BN keys through a ring of STAGES stages, each with a full
 //   barrier for K, one for V and an empty barrier the consumers release, so
 //   loads run ahead of the products. It alone keeps the wait watchdog.
-// - d <= 80: BN = 64 and two CTAs per SM (104 registers a consumer thread),
-//   so four consumer warpgroups share an SM and one's softmax runs while
-//   another's products do; d = 160: BN = 128 and one CTA per SM (O alone
-//   takes 80 registers a thread; 240 with setmaxnreg).
+// - Three tiers by padded head dim DP (FwdConfig): DP <= 80, BN = 64 and two
+//   CTAs per SM (104 registers a consumer thread), so four consumer
+//   warpgroups share an SM and one's softmax runs while another's products
+//   do; 96 <= DP <= 160, BN = 128 and one CTA per SM (O takes up to 80
+//   registers a thread; 240 with setmaxnreg); DP > 160, BN = 64, two stages
+//   and one CTA per SM: O alone takes DP/2 = 128 registers a thread at 256,
+//   beside S's 32 and P's 16, and Q with two K/V stages of 128 keys would
+//   need 320 KB of shared memory (192 KB with 64 keys).
 // - Tiles are the chunked, swizzled tiles of hopper_common.cuh; TMA's zero
 //   fill reads d = 40 as 48.
 // - Per key tile and warpgroup: S = Q K^T on SS wgmma (Q and K K-major),
@@ -37,7 +41,7 @@
 //   yet keeps base 0, so nothing is -inf - -inf); O rescaled by alpha; then
 //   O += P V on RS wgmma: P packed to bf16 A fragments in accumulator order,
 //   V read MN-major (transposed through the descriptor), in column pieces of
-//   64/32/16 that cover d = 48, 64, 80, 160. FA3's intra-warpgroup overlap
+//   64/32/16 that cover every DP. FA3's intra-warpgroup overlap
 //   and ping-pong schedules were slower here (PERF.md).
 // - Key tiles where the segment mask removes every (query, key) pair of the
 //   CTA are skipped by producer and consumers alike.
@@ -58,16 +62,16 @@ struct FwdParams {
 template <int DP>
 struct FwdConfig {
   static constexpr int CW = DP % 64 == 0 ? 64 : (DP % 32 == 0 ? 32 : 16);  // chunk width
-  static constexpr bool WIDE = DP > 96;
-  static constexpr int BM = 128;             // q rows: 2 consumer warpgroups of 64
-  static constexpr int BN = WIDE ? 128 : 64;  // keys per step
-  static constexpr int CTAS = WIDE ? 1 : 2;   // CTAs per SM
-  static constexpr int STAGES = WIDE ? 2 : 3;
+  static constexpr bool NARROW = DP <= 80, WIDE = DP > 160;
+  static constexpr int BM = 128;  // q rows: 2 consumer warpgroups of 64
+  static constexpr int BN = NARROW || WIDE ? 64 : 128;  // keys per step
+  static constexpr int CTAS = NARROW ? 2 : 1;           // CTAs per SM
+  static constexpr int STAGES = NARROW ? 3 : 2;
   static constexpr int THREADS = 384;  // 2 consumer warpgroups, then the producer
   // registers a thread gets at launch, and a consumer thread once the
   // producer warpgroup has given back all but 24 of its own (setmaxnreg)
   static constexpr int LAUNCH_REGS = 65536 / (THREADS * CTAS) / 8 * 8;
-  static constexpr int CONSUMER_REGS = WIDE ? 240 : 104;
+  static constexpr int CONSUMER_REGS = NARROW ? 104 : 240;
   static_assert(256 * CONSUMER_REGS + 128 * 24 <= THREADS * LAUNCH_REGS, "register budget");
   static constexpr int Q_BYTES = BM * DP * 2;
   static constexpr int KV_BYTES = BN * DP * 2;  // one K or V stage
@@ -76,6 +80,8 @@ struct FwdConfig {
   static constexpr int OFF_V = OFF_K + STAGES * KV_BYTES;
   static constexpr int OFF_BAR = OFF_V + STAGES * KV_BYTES;
   static constexpr int SMEM = OFF_BAR + (1 + 3 * STAGES) * 8;
+  // + 1024 bytes to align the base; an SM's 228 KB hold CTAS of them
+  static_assert(CTAS * (SMEM + 1024) <= 232448, "shared memory");
 };
 
 template <typename T, int DP>
@@ -310,6 +316,8 @@ static int launch_fwd(const FlashArgs& a, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-extern "C" int flash_fwd(const FlashArgs* args, void* stream) {
-  FLASH_DISPATCH(launch_fwd, *args, (cudaStream_t)stream);
-}
+#ifdef FLASH_DP
+FLASH_DEFINE_DP(flash_fwd, launch_fwd, FLASH_DP)
+#else
+FLASH_DISPATCH(flash_fwd)
+#endif

@@ -637,6 +637,8 @@ def train(config: TrainingConfig):
     before_train = _launches()
     sharding.reset_collective_stats()  # the summary counts the loop's collectives
     _sync(device)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(device)  # the summary's loop_peak_gib
     loop_start = time.perf_counter()
 
     def crossed(stride: int) -> bool:
@@ -692,6 +694,8 @@ def train(config: TrainingConfig):
 
     _sync(device)
     loop_s = time.perf_counter() - loop_start - sum(ckpt_secs) - sum(render_secs)
+    if device.type == "cuda":  # the steps' peak, and any checkpoint's inside the loop
+        timings["loop_peak_gib"] = torch.cuda.max_memory_allocated(device) / 2**30
     train_launches = _launch_delta(before_train)
     for per_render in render_launches:
         for k, v in per_render.items():

@@ -15,9 +15,13 @@ Being an op, it is seen by a selective remat policy, which can keep its
 outputs and skip the forward kernel in the backward (models/unet.py).
 
 Each wrapper takes the plain PyTorch version (`*_ref`) for a tensor on the
-CPU, and for a CUDA tensor launches its kernel or raises. Both kernels read
-bf16 tiles through TMA; head dim 40 is read as 48 by TMA's zero fill, not
-padded in device memory; `sm_scale` always uses the real head dim. Ragged
+CPU, and for a CUDA tensor launches its kernel or raises. The kernels take
+every head dim the JAX gate admits (1-256): they are built for every
+round_up(d, 16) from 16 to 256 and read bf16 tiles through TMA, which reads
+columns d..round_up(d, 16)-1 as zeros (head dim 40 is read as 48 with no
+copy); a head dim that is not a multiple of 8 is zero-padded to one in
+device memory and the outputs sliced back (`_at_kernel_head_dim`), since
+TMA needs 16-byte row strides. `sm_scale` always uses the real head dim. Ragged
 sequence lengths are padded to `_pad_plan` and masked with segment ids (ids 1
 below `valid_len`, 0 above), so pad rows attend only to pad keys.
 """
@@ -33,14 +37,12 @@ import torch.nn.functional as F
 from torch.utils.flop_counter import register_flop_formula
 
 from sd_lora_trainer_tpu_torch.ops.checkpoint_names import checkpoint_name
-from sd_lora_trainer_tpu_torch.ops.kernels import FlashArgs, FlashStrides, kernel_lib
+from sd_lora_trainer_tpu_torch.ops.kernels import HEAD_DIM_TILES, FlashArgs, FlashStrides, kernel_lib
 from sd_lora_trainer_tpu_torch.ops.stash8 import dequantize_rowwise, quantize_rowwise
 
 # Kernel launches per wrapper; only a real CUDA launch counts.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
 
-# round_up(head_dim, 16) values the kernels are instantiated for
-_KERNEL_HEAD_DIMS = (48, 64, 80, 160)
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
 
@@ -54,15 +56,16 @@ def _round_up(x: int, m: int) -> int:
 
 
 def kernel_takes_head_dim(head_dim: int) -> bool:
-    return head_dim % 8 == 0 and _round_up(head_dim, 16) in _KERNEL_HEAD_DIMS
+    """Every head dim up to 256, as the JAX gate: the kernels are built for
+    each round_up(d, 16) in HEAD_DIM_TILES (16-256), and a head dim off a
+    multiple of 8 is padded to one first (`_at_kernel_head_dim`)."""
+    return 1 <= head_dim <= HEAD_DIM_TILES[-1]
 
 
 def flash_attention_qualifies(q_shape, k_shape, heads: int, device) -> bool:
     """Gate: tensors on CUDA, self-attention of >= 256 tokens, head_dim <= 256,
-    as the JAX gate. Cross-attention and short sequences stay plain. A
-    qualifying head dim the kernels are not built for (see
-    `kernel_takes_head_dim`) raises in the kernel wrappers; it never falls
-    back to plain attention."""
+    as the JAX gate. Cross-attention and short sequences stay plain; every
+    qualifying head dim has a kernel (`kernel_takes_head_dim`)."""
     if torch.device(device).type != "cuda":
         return False
     _, lq, d = q_shape
@@ -161,24 +164,44 @@ def _kernel_readable(x: torch.Tensor) -> bool:
     return x.stride(-1) == 1 and not any(s % 8 for s in x.stride()[:-1]) and x.data_ptr() % 16 == 0
 
 
-def _check_operand(name: str, x: torch.Tensor, shape, dtype) -> None:
-    if tuple(x.shape) != tuple(shape) or x.dtype != dtype:
-        raise ValueError(f"{name}: expected {tuple(shape)} {dtype}, got {tuple(x.shape)} {x.dtype}")
-    if not _kernel_readable(x):
-        raise ValueError(f"{name}: needs a contiguous last dim, 8-element strides, 16-byte alignment")
-
-
 def _check_inputs(q, k, v):
     b, h, length, d = q.shape
     if q.dtype not in _DTYPE_CODES:
         raise TypeError(f"flash kernels take bf16 or fp32, got {q.dtype}")
     if not kernel_takes_head_dim(d) or length % 128:
         raise ValueError(f"no flash kernel for head_dim={d}, L={length}: the kernels take "
-                         f"head dims 40, 64, 80, 160 (a multiple of 8 that rounds up to "
-                         f"{_KERNEL_HEAD_DIMS} at 16) and L a multiple of 128, the rows "
+                         f"head dims 1-{HEAD_DIM_TILES[-1]} and L a multiple of 128, the rows "
                          f"both kernels tile at")
-    for name, x in (("q", q), ("k", k), ("v", v)):
-        _check_operand(name, x, q.shape, q.dtype)
+    for name, x in (("k", k), ("v", v)):
+        if tuple(x.shape) != tuple(q.shape) or x.dtype != q.dtype:
+            raise ValueError(f"{name}: expected {tuple(q.shape)} {q.dtype}, got "
+                             f"{tuple(x.shape)} {x.dtype}")
+
+
+def _at_kernel_head_dim(kernel, tensors, *args):
+    """kernel(*tensors, *args) with the [B, H, L, d] tensors zero-padded to a
+    head dim that is a multiple of 8 (TMA reads rows in 16-byte units) and
+    the [B, H, L, d] outputs sliced back to d; [B, H, L] ones (lse, di) pass
+    as they are. The zero columns add nothing to q.k and come out as zero
+    columns of o, dq, dk and dv: the JAX package pads d = 160 to 256 on the
+    same argument."""
+    d = tensors[0].shape[-1]
+    d8 = _round_up(d, 8)
+    if d8 == d:
+        return kernel(*tensors, *args)
+    padded = [F.pad(x, (0, d8 - d)) if x.dim() == 4 else x for x in tensors]
+    return tuple(o[..., :d] if o.dim() == 4 else o for o in kernel(*padded, *args))
+
+
+def _kernel_operand(name: str, x: torch.Tensor) -> torch.Tensor:
+    """x as the kernels read it through TMA, which cannot convert: bf16 (fp32
+    is rounded here, the tensor cores' input precision either way), read in
+    place when its layout allows it."""
+    if x.dtype != torch.bfloat16:
+        x = _kernel_layout(x.to(torch.bfloat16))
+    if not _kernel_readable(x):
+        raise ValueError(f"{name}: needs a contiguous last dim, 8-element strides, 16-byte alignment")
+    return x
 
 
 def _strides(x: torch.Tensor) -> FlashStrides:
@@ -217,27 +240,27 @@ def _empty_like_heads(x: torch.Tensor) -> torch.Tensor:
 
 
 def flash_fwd(q, k, v, sm_scale: float, valid_len: int = 0):
-    """K1: (o [B,H,L,d] in q's dtype, lse fp32 [B,H,L]) for q, k, v [B, H, L, d].
-
-    The kernel reads bf16 through TMA, which cannot convert: fp32 q, k, v are
-    rounded to bf16 here (the tensor cores' input precision either way).
-    """
+    """K1: (o [B,H,L,d] in q's dtype, lse fp32 [B,H,L]) for q, k, v [B, H, L, d]."""
     if _on_cpu(q, k, v):
         return flash_fwd_ref(q, k, v, sm_scale, valid_len)
     _check_inputs(q, k, v)
+    return _at_kernel_head_dim(_flash_fwd_launch, (q, k, v), sm_scale, valid_len)
+
+
+def _flash_fwd_launch(q, k, v, sm_scale: float, valid_len: int):
     b, h, length, _ = q.shape
-    out_dtype = q.dtype
     o = _empty_like_heads(q)
     lse = torch.empty(b, h, length, dtype=torch.float32, device=q.device)
-    if out_dtype != torch.bfloat16:
-        q, k, v = (_kernel_layout(x.to(torch.bfloat16)) for x in (q, k, v))
+    out_dtype = q.dtype
+    q, k, v = (_kernel_operand(n, x) for n, x in (("q", q), ("k", k), ("v", v)))
     _launch("flash_fwd", q, k, v, out_a=o, lse=lse, sm_scale=sm_scale, valid_len=valid_len,
             dtype=out_dtype)
     return o, lse
 
 
 def _check_residuals(q, do, lse, di):
-    _check_operand("do", do, q.shape, q.dtype)
+    if tuple(do.shape) != tuple(q.shape) or do.dtype != q.dtype:
+        raise ValueError(f"do: expected {tuple(q.shape)} {q.dtype}, got {tuple(do.shape)} {do.dtype}")
     for name, x in (("lse", lse), ("di", di)):
         if (tuple(x.shape) != tuple(q.shape[:3]) or x.dtype != torch.float32
                 or not x.is_contiguous() or x.data_ptr() % 16):
@@ -247,20 +270,21 @@ def _check_residuals(q, do, lse, di):
 def flash_bwd(q, k, v, do, lse, di, sm_scale: float, valid_len: int = 0):
     """(dq, dk, dv) [B, H, L, d] in q's dtype, one fused kernel launch.
 
-    The kernel reads bf16 through TMA, which cannot convert: fp32 q, k, v and
-    do are rounded to bf16 here, as `flash_fwd` rounds q, k, v. dq is summed
-    across key tiles in an fp32 buffer (zeroed here) by atomic adds, so its
-    last bits vary from run to run.
+    dq is summed across key tiles in an fp32 buffer (zeroed here) by atomic
+    adds, so its last bits vary from run to run.
     """
     if _on_cpu(q, k, v, do, lse, di):
         return flash_bwd_ref(q, k, v, do, lse, di, sm_scale, valid_len)
     _check_inputs(q, k, v)
     _check_residuals(q, do, lse, di)
+    return _at_kernel_head_dim(_flash_bwd_launch, (q, k, v, do, lse, di), sm_scale, valid_len)
+
+
+def _flash_bwd_launch(q, k, v, do, lse, di, sm_scale: float, valid_len: int):
     b, h, length, d = q.shape
     out_dtype = q.dtype
     dq, dk, dv = _empty_like_heads(q), _empty_like_heads(k), _empty_like_heads(v)
-    if out_dtype != torch.bfloat16:
-        q, k, v, do = (_kernel_layout(x.to(torch.bfloat16)) for x in (q, k, v, do))
+    q, k, v, do = (_kernel_operand(n, x) for n, x in (("q", q), ("k", k), ("v", v), ("do", do)))
     acc = torch.zeros(b, h, length, _round_up(d, 16), dtype=torch.float32, device=q.device)
     _launch("flash_bwd", q, k, v, dout=do, out_a=dk, out_b=dv, out_c=dq, acc=acc, lse=lse,
             di=di, sm_scale=sm_scale, valid_len=valid_len, dtype=out_dtype)

@@ -1,13 +1,17 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
-Each kernel source compiles with nvcc for sm_90a into its own shared library
-with a plain C interface, loaded with ctypes. The build happens at first use
-(or through `build_kernels()`), never at import, so the CPU tests import this
-module without a CUDA toolkit. All sources build in parallel, one nvcc each.
-Libraries land in `build/kernels/` at the repository root (git-ignored),
-named by a hash of their sources and headers, so an edited kernel or
-header is rebuilt. Beside each library lies its ptxas report
-(`lib<name>-<hash>.ptxas.txt`), read back when the library is cached.
+Each kernel source builds with nvcc for sm_90a into its own shared library
+with a plain C interface, loaded with ctypes. A source compiles as one
+translation unit per padded head dim (`-DFLASH_DP=<DP>`, DP in HEAD_DIM_TILES)
+plus one for its exported dispatch function (csrc/flash_common.cuh); every
+unit of every kernel compiles at once, one nvcc each, and each kernel's
+objects are then linked into its library. The build happens at first use (or
+through `build_kernels()`), never at import, so the CPU tests import this
+module without a CUDA toolkit. Libraries land in `build/kernels/` at the
+repository root (git-ignored), named by a hash of their sources and headers,
+so an edited kernel or header is rebuilt. Beside each library lies its
+ptxas report (`lib<name>-<hash>.ptxas.txt`, every unit's in turn), read back
+when the library is cached.
 """
 
 from __future__ import annotations
@@ -25,10 +29,12 @@ from typing import Dict
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-)
+# padded head dims round_up(d, 16) the kernels are instantiated for
+# (FLASH_HEAD_DIMS in csrc/flash_common.cuh)
+HEAD_DIM_TILES = tuple(range(16, 257, 16))
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+LINK_FLAGS = (*ARCH, "-shared")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas resource report (registers, spills, shared memory) of each library,
@@ -87,7 +93,8 @@ def _lib_path(name: str) -> Path:
     h = hashlib.sha256()
     for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         h.update(src.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
+    h.update(" ".join(NVCC_FLAGS + LINK_FLAGS).encode())
+    h.update(" ".join(map(str, HEAD_DIM_TILES)).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
@@ -95,11 +102,20 @@ def _report_path(lib: Path) -> Path:
     return lib.with_suffix(".ptxas.txt")
 
 
+def _units(name: str):
+    """(label, nvcc defines) of each translation unit of one kernel source."""
+    return [(f"dp{dp}", [f"-DFLASH_DP={dp}"]) for dp in HEAD_DIM_TILES] + [("dispatch", [])]
+
+
 def build_kernels() -> float:
-    """Compile every kernel library that is missing; returns wall seconds."""
+    """Compile every kernel library that is missing; returns wall seconds.
+
+    Every translation unit of every missing library starts at once (one nvcc
+    each); a library is linked from its objects once all of them are built.
+    """
     t0 = time.perf_counter()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name in KERNEL_SOURCES:
         out = _lib_path(name)
         if out.exists():
@@ -107,20 +123,36 @@ def build_kernels() -> float:
             if report.exists():
                 BUILD_LOG[name] = report.read_text()
             continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        ), tmp, out)
+        objdir = out.with_suffix(f".{os.getpid()}.obj")
+        objdir.mkdir(exist_ok=True)
+        units = []
+        for label, defines in _units(name):
+            obj = objdir / f"{label}.o"
+            cmd = [_nvcc(), *NVCC_FLAGS, *defines, "-c", "-o", str(obj), str(CSRC / f"{name}.cu")]
+            units.append((label, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        jobs[name] = (units, objdir, out)
     failed = []
-    for name, (proc, tmp, out) in procs.items():
-        log, _ = proc.communicate()
-        BUILD_LOG[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
-            continue
-        _report_path(out).write_text(log)
-        os.replace(tmp, out)
+    for name, (units, objdir, out) in jobs.items():
+        report, ok = [], True
+        for label, _, proc in units:
+            log, _ = proc.communicate()
+            report.append(f"== {name}.cu {label}\n{log}")
+            if proc.returncode != 0:
+                ok = False
+                failed.append(f"{name} ({label}):\n{log}")
+        BUILD_LOG[name] = "".join(report)
+        if ok:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            link = subprocess.run([_nvcc(), *LINK_FLAGS, "-o", str(tmp),
+                                   *(str(obj) for _, obj, _ in units)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            if link.returncode != 0:
+                failed.append(f"{name} (link):\n{link.stdout}")
+            else:
+                _report_path(out).write_text(BUILD_LOG[name])
+                os.replace(tmp, out)
+        shutil.rmtree(objdir, ignore_errors=True)
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return time.perf_counter() - t0
@@ -143,18 +175,20 @@ def kernel_lib(name: str) -> ctypes.CDLL:
 
 def ptxas_summary(report: str) -> list:
     """'kernel<dtype, DP>: N registers, S bytes spilled' for each bf16 entry
-    function in an `nvcc -Xptxas -v` report (the fp32 instances match them)."""
+    function in an `nvcc -Xptxas -v` report (the fp32 instances match them),
+    by kernel name and then DP. For a kernel that hands registers to its
+    consumers with setmaxnreg, N is the launch's budget, not the consumers'."""
     out, entry, spill = [], None, "0"
     for line in report.splitlines():
         m = re.search(r"entry function '_Z\d+(\w+?)I(13__nv_bfloat16|f)Li(\d+)E", line)
         if m:
-            entry = f"{m.group(1)}<{'bf16' if m.group(2) != 'f' else 'fp32'}, {m.group(3)}>"
+            entry = (m.group(1), int(m.group(3))) if m.group(2) != "f" else None
         m = re.search(r"(\d+) bytes spill stores", line)
         if m:
             spill = m.group(1)
         m = re.search(r"Used (\d+) registers", line)
-        if m and entry and "bf16" in entry:
-            out.append(f"{entry}: {m.group(1)} registers, {spill} bytes spilled")
+        if m and entry:
+            out.append((*entry, f"{m.group(1)} registers, {spill} bytes spilled"))
         if m:
             entry, spill = None, "0"
-    return sorted(out)
+    return [f"{name}<bf16, {dp}>: {text}" for name, dp, text in sorted(out)]

@@ -14,10 +14,9 @@ then scores every periodic checkpoint (`checkpoint_trends`). It writes
 where matplotlib exists) under `--out`, prints the report, and exits 1 if
 the loss did not fall.
 
-The tiny UNet is the JAX recipe's widened to head dim 64
-(`TINY_FLASH_SDXL_UNET_CONFIG`): at 128px its self-attention runs at 1024
-and 256 tokens, where the card's flash kernels take it, and they have no
-instance for the tiny head dim of 32.
+The tiny UNet is the JAX recipe's own (`TINY_SDXL_UNET_CONFIG`): at 128px
+its self-attention runs at 1024 and 256 tokens with head dim 32, where the
+card's flash kernels take it.
 """
 
 from __future__ import annotations
@@ -222,8 +221,8 @@ def run(config_kwargs: dict, out_dir: str) -> dict:
 
 def main(argv=None) -> int:
     from sd_lora_trainer_tpu_torch.models.synthesize import (
-        TINY_CLIP_G_CONFIG, TINY_CLIP_L_CONFIG, TINY_FLASH_SDXL_UNET_CONFIG, TINY_VAE_CONFIG,
-        synthesize_checkpoint)
+        TINY_CLIP_G_CONFIG, TINY_CLIP_L_CONFIG, TINY_VAE_CONFIG, synthesize_checkpoint)
+    from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--tiny", action="store_true", default=True,
@@ -242,7 +241,7 @@ def main(argv=None) -> int:
     work = tempfile.mkdtemp(prefix="convergence_", dir=os.path.join(ROOT, "build"))
     try:
         ckpt = os.path.join(work, "tiny_sdxl.safetensors")
-        synthesize_checkpoint(ckpt, "sdxl", TINY_FLASH_SDXL_UNET_CONFIG, TINY_VAE_CONFIG,
+        synthesize_checkpoint(ckpt, "sdxl", TINY_SDXL_UNET_CONFIG, TINY_VAE_CONFIG,
                               TINY_CLIP_L_CONFIG, TINY_CLIP_G_CONFIG, seed=args.seed,
                               device=str(device))
         data_dir = os.path.join(work, "dataset")

@@ -11,15 +11,16 @@ trainer, renders the validation images, and checks the artifact set,
 finite losses and that every render has contrast. Where a CLIP scorer is
 staged (scripts/auto_eval_model.py) it also scores train similarity, and
 with real weights asserts `--min-train-sim`. `--synthesize` writes a
-checkpoint first: "tiny" (the tiny SDXL with head dim 64, which the card's
-flash kernels take; the tiny SD1.5 for `--model sd15`) or "full" (the
-published widths). The last line is "REAL-WEIGHTS CHECK PASSED" when
+checkpoint first: "tiny" (the JAX package's tiny SDXL, or for `--model
+sd15` its tiny SD1.5 with the cross-attention width of the tiny CLIP-L) or
+"full" (the published widths). The last line is "REAL-WEIGHTS CHECK PASSED" when
 everything held; any failure raises.
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -60,9 +61,11 @@ def synthesize(root: str, model: str, full: bool, device) -> str:
         vae_cfg = vae.SDXL_VAE_CONFIG if model == "sdxl" else vae.SD15_VAE_CONFIG
         te1_cfg, te2_cfg = clip.CLIP_L_CONFIG, clip.CLIP_BIG_G_CONFIG
     else:
-        unet_cfg = (syn.TINY_FLASH_SDXL_UNET_CONFIG if model == "sdxl"
-                    else unet_mod.TINY_SD15_UNET_CONFIG)
         vae_cfg, te1_cfg, te2_cfg = syn.TINY_VAE_CONFIG, syn.TINY_CLIP_L_CONFIG, syn.TINY_CLIP_G_CONFIG
+        # the tiny SD1.5 UNet's cross-attention (48 wide) takes the tiny
+        # CLIP-L's 32: its hidden states are SD1.5's conditioning
+        unet_cfg = (unet_mod.TINY_SDXL_UNET_CONFIG if model == "sdxl" else dataclasses.replace(
+            unet_mod.TINY_SD15_UNET_CONFIG, cross_attention_dim=te1_cfg.hidden_size))
     ckpt = os.path.join(root, f"synth_{model}_{'full' if full else 'tiny'}.safetensors")
     print(f"[real-weights-check] synthesizing {'full-width' if full else 'tiny'} {model} "
           f"checkpoint -> {ckpt}", flush=True)

@@ -93,3 +93,17 @@ def test_bench_refuses_with_an_error_line(env, cpu, message):
     assert rc == 1
     assert out["value"] is None and message in out["error"]
     assert REQUIRED_TOP - {"config"} <= set(out)
+
+
+def test_bench_sd15_runs_the_one_encoder_model():
+    """BENCH_MODEL=sd15: one text encoder and its TI rows, the SD1.5 UNet's
+    LoRA sites, and "auto" resolving to no remat at <= 512px (the JAX
+    package's rule, training/step.py)."""
+    rc, out, err = _run({"BENCH_MODEL": "sd15", "BENCH_SCAN": "1"})
+    assert rc == 0, err[-3000:]
+    cfg = out["config"]
+    assert REQUIRED_CONFIG <= set(cfg), cfg
+    assert out["metric"] == "sd15_lora_train_imgs_per_sec_chip_64px_bs2"
+    assert (cfg["model"], cfg["remat"], cfg["timed_steps"]) == ("sd15", False, 2)
+    assert cfg["adapter_targets"] == 94  # tiny SD1.5's sites
+    assert out["value"] > 0 and cfg["flops_per_step"] > 0

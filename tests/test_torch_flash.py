@@ -58,7 +58,7 @@ def _jax_lse(q, k, heads, valid, lp):
 
     b, length, d = q.shape
     hd = d // heads
-    padded = hd if hd <= 128 else 256  # the JAX package pads d=160 to 256
+    padded = hd if hd <= 128 else 256  # the JAX package pads d > 128 to 256
 
     def split(x):
         x = jnp.pad(jnp.asarray(x), ((0, 0), (0, lp - length), (0, 0)))
@@ -80,8 +80,14 @@ def _jax_lse(q, k, heads, valid, lp):
     return np.asarray(m + jnp.log(l))
 
 
-@pytest.mark.parametrize("head_dim", [40, 64, 80, 160])
-@pytest.mark.parametrize("mode", ["exact256", "padded300", "prepadded300"])
+# SD's head dims in every mode; the rest of the JAX gate's range (the tiny
+# UNets' 16 and 32, 36 off a multiple of 8, 96 and 128, and 192 and 256,
+# which the JAX package pads to 256) whole and ragged
+_MHA_CASES = ([(d, m) for m in ("exact256", "padded300", "prepadded300") for d in (40, 64, 80, 160)]
+              + [(d, m) for m in ("exact256", "padded300") for d in (16, 32, 36, 96, 128, 192, 256)])
+
+
+@pytest.mark.parametrize("head_dim, mode", _MHA_CASES, ids=[f"{m}-{d}" for d, m in _MHA_CASES])
 def test_flash_mha_matches_jax_kernels(head_dim, mode):
     heads = 2
     length = 256 if mode == "exact256" else 300
@@ -203,20 +209,65 @@ def test_qualifies_gate():
     assert not fa.flash_attention_qualifies((2, 100, 640), (2, 100, 640), 10, "cuda")
     assert not fa.flash_attention_qualifies((2, 4096, 640), (2, 77, 640), 10, "cuda")
     assert not fa.flash_attention_qualifies((2, 4096, 512), (2, 4096, 512), 1, "cuda")  # d=512
-    # as the JAX gate: every head dim up to 256, also those no kernel is built
-    # for (the wrappers then raise instead of falling back to plain attention)
+    # as the JAX gate: every head dim up to 256, each with a kernel
     assert fa.flash_attention_qualifies((2, 1024, 64), (2, 1024, 64), 2, "cuda")  # d=32
     assert fa.flash_attention_qualifies((2, 1024, 256), (2, 1024, 256), 1, "cuda")  # d=256
 
 
-@pytest.mark.parametrize("head_dim", [32, 96, 128, 36])
+@pytest.mark.parametrize("head_dim", [32, 96, 128, 36, 1, 255, 256])
 def test_kernel_input_check_refuses_head_dims_without_a_kernel(head_dim):
-    """The CUDA wrappers' input check raises for a head dim the kernels are
-    not built for; it runs before any launch, so it is testable on the CPU."""
-    assert not fa.kernel_takes_head_dim(head_dim)
+    """The CUDA wrappers' input check (it runs before any launch, so it is
+    testable on the CPU) takes every head dim the JAX gate admits, 1-256,
+    and refuses the first one past it and lengths off the 128-row tile."""
+    assert all(fa.kernel_takes_head_dim(d) for d in range(1, 257))
+    assert fa.kernel_takes_head_dim(head_dim)
     q = torch.zeros(1, 2, 256, head_dim)
+    fa._check_inputs(q, q, q)
+    assert not fa.kernel_takes_head_dim(head_dim + 256)
+    q = torch.zeros(1, 2, 256, head_dim + 256)  # 264 at 8: no kernel
     with pytest.raises(ValueError, match="no flash kernel"):
         fa._check_inputs(q, q, q)
+    q = torch.zeros(1, 2, 320, head_dim)
+    with pytest.raises(ValueError, match="L a multiple of 128"):
+        fa._check_inputs(q, q, q)
+
+
+@pytest.mark.parametrize("head_dim", [36, 100, 7])
+def test_kernel_path_pads_head_dims_off_a_multiple_of_8_and_slices_back(head_dim):
+    """The CUDA wrappers hand the kernels q, k, v (and dO) zero-padded to a
+    head dim that is a multiple of 8, and slice o, dq, dk and dv back; lse
+    and di pass as they are. Through the same `_at_kernel_head_dim` with the
+    plain versions standing in for the kernels, on CPU tensors: what comes
+    back equals the unpadded plain result, at the real head dim."""
+    d8 = -(-head_dim // 8) * 8
+    rng = np.random.default_rng(head_dim)
+    q, k, v, do = (torch.tensor(rng.standard_normal((1, 2, 384, head_dim), dtype=np.float32))
+                   for _ in range(4))
+    sc, valid = head_dim**-0.5, 300
+    seen = []
+
+    def kernel(ref):
+        def run(*args):
+            tensors = [a for a in args if torch.is_tensor(a)]
+            seen.append([tuple(t.shape) for t in tensors])
+            for t in tensors:
+                if t.dim() == 4:  # padded to d8 with zero columns
+                    assert t.shape[-1] == d8 and not t[..., head_dim:].any()
+            return ref(*args)
+        return run
+
+    o, lse = fa._at_kernel_head_dim(kernel(fa.flash_fwd_ref), (q, k, v), sc, valid)
+    o_r, lse_r = fa.flash_fwd_ref(q, k, v, sc, valid)
+    assert o.shape == o_r.shape and lse.shape == lse_r.shape
+    torch.testing.assert_close(o, o_r, atol=1e-6, rtol=0)
+    torch.testing.assert_close(lse, lse_r, atol=1e-6, rtol=0)
+    di = (o_r * do).sum(-1)
+    got = fa._at_kernel_head_dim(kernel(fa.flash_bwd_ref), (q, k, v, do, lse_r, di), sc, valid)
+    want = fa.flash_bwd_ref(q, k, v, do, lse_r, di, sc, valid)
+    for t, r in zip(got, want):
+        assert t.shape == r.shape == q.shape
+        torch.testing.assert_close(t, r, atol=1e-5, rtol=0)
+    assert seen == [[(1, 2, 384, d8)] * 3, [(1, 2, 384, d8)] * 4 + [(1, 2, 384)] * 2]
 
 
 def test_cpu_wrappers_take_the_plain_version_and_count_no_launch():
@@ -244,7 +295,10 @@ def _chip_smoke():
 
 
 @pytest.mark.parametrize("shape", [(4, 10, 4096, 0, 64), (4, 20, 384, 300, 64),
-                                   (4, 8, 4096, 3952, 40)])
+                                   (4, 8, 4096, 3952, 40), (2, 8, 9216, 0, 40),
+                                   (4, 8, 3072, 2304, 80), (4, 8, 1024, 576, 160),
+                                   (2, 4, 1024, 0, 16), (2, 4, 1024, 0, 256),
+                                   (2, 4, 1024, 1000, 256)])
 @pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd"])
 def test_chip_smoke_counts_the_kernel_work(kernel, shape):
     """chip_smoke's bound, over the (query, key) pairs the segment mask leaves:

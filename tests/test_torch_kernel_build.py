@@ -43,8 +43,9 @@ def test_editing_one_kernel_renames_only_its_library(tmp_path, monkeypatch):
     assert kernels._lib_path("flash_fwd") == before["flash_fwd"]
 
 
-# Stands in for nvcc: prints a report naming the source (the last argument)
-# and writes an empty library where `-o` points.
+# Stands in for nvcc: prints a report naming its last argument (a unit's
+# source, or the last object of a link) and writes an empty file where `-o`
+# points.
 _FAKE_NVCC = """#!/bin/sh
 while [ $# -gt 1 ]; do
   if [ "$1" = -o ]; then out=$2; fi
@@ -57,7 +58,8 @@ echo "report of $(basename "$1")"
 
 def test_a_build_keeps_its_ptxas_report_and_a_cached_library_reads_it_back(tmp_path,
                                                                             monkeypatch):
-    """The ptxas report (registers, spills) is written beside each library, so
+    """The ptxas report (registers, spills) of every translation unit, one
+    per padded head dim and the dispatch, is written beside each library, so
     a run that finds the libraries already built still prints it."""
     fake = tmp_path / "nvcc"
     fake.write_text(_FAKE_NVCC)
@@ -66,11 +68,19 @@ def test_a_build_keeps_its_ptxas_report_and_a_cached_library_reads_it_back(tmp_p
     monkeypatch.setattr(kernels, "BUILD_LOG", {})
     monkeypatch.setattr(kernels, "_nvcc", lambda: str(fake))
     kernels.build_kernels()
+    want = {name: "".join(f"== {name}.cu {label}\nreport of {name}.cu\n"
+                          for label, _ in kernels._units(name))
+            for name in kernels.KERNEL_SOURCES}
     for name in kernels.KERNEL_SOURCES:
+        assert [label for label, _ in kernels._units(name)] == (
+            [f"dp{dp}" for dp in range(16, 257, 16)] + ["dispatch"])
         lib = kernels._lib_path(name)
         assert lib.is_file()
-        assert lib.with_suffix(".ptxas.txt").read_text() == f"report of {name}.cu\n"
-    assert kernels.BUILD_LOG == {n: f"report of {n}.cu\n" for n in kernels.KERNEL_SOURCES}
+        assert lib.with_suffix(".ptxas.txt").read_text() == want[name]
+    assert kernels.BUILD_LOG == want
+    assert sorted(p.name for p in (tmp_path / "kernels").iterdir()) == sorted(
+        p.name for name in kernels.KERNEL_SOURCES
+        for p in (kernels._lib_path(name), kernels._report_path(kernels._lib_path(name))))
 
     def no_nvcc(*args, **kwargs):
         raise AssertionError("a cached library was rebuilt")
@@ -78,4 +88,4 @@ def test_a_build_keeps_its_ptxas_report_and_a_cached_library_reads_it_back(tmp_p
     monkeypatch.setattr(kernels, "_nvcc", no_nvcc)
     monkeypatch.setattr(kernels, "BUILD_LOG", {})
     kernels.build_kernels()
-    assert kernels.BUILD_LOG == {n: f"report of {n}.cu\n" for n in kernels.KERNEL_SOURCES}
+    assert kernels.BUILD_LOG == want

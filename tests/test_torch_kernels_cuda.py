@@ -116,16 +116,55 @@ def test_flash_mha_on_cuda_never_takes_the_plain_version(cuda_device, monkeypatc
 
 
 @pytest.mark.cuda
-def test_self_attention_on_cuda_raises_for_a_head_dim_without_a_kernel(cuda_device):
-    """A qualifying self-attention (L >= 256, head_dim <= 256) whose head dim
-    has no kernel raises on CUDA; it never returns a plain result."""
+@pytest.mark.parametrize("head_dim", [16, 32, 36, 128, 192, 256])
+@pytest.mark.parametrize("valid", [0, 300])
+def test_cuda_kernels_match_plain_versions_at_every_head_dim_tier(cuda_device, head_dim, valid):
+    """The head dims the JAX gate admits beyond SD's: the narrow tiles (16,
+    32), a head dim off a multiple of 8 (36: padded to 40 in device memory
+    and sliced back), the forward's and backward's middle tier (128) and
+    their wide tiers (192, 256: the forward's 64-key steps and the
+    backward's column split), whole and segment-masked."""
+    length = 384 if valid else 512
+    g = torch.Generator(device=cuda_device).manual_seed(head_dim)
+    q, k, v, do = (torch.randn(2, length, 3, head_dim, generator=g, device=cuda_device)
+                   .bfloat16().transpose(1, 2) for _ in range(4))
+    sc = head_dim**-0.5
+    before = dict(fa.LAUNCHES)
+    o, lse = fa.flash_fwd(q, k, v, sc, valid)
+    o_r, lse_r = fa.flash_fwd_ref(q, k, v, sc, valid)
+    di = (o_r.float() * do.float()).sum(-1).contiguous()
+    got = fa.flash_bwd(q, k, v, do, lse_r, di, sc, valid)
+    want = fa.flash_bwd_ref(q, k, v, do, lse_r, di, sc, valid)
+    torch.cuda.synchronize()
+    for x, r in zip((o,) + got, (o_r,) + want):
+        assert x.shape == r.shape
+        _close(x, r)
+    assert (lse - lse_r).abs().max() <= LSE_TOL
+    assert all(fa.LAUNCHES[n] == before[n] + 1 for n in fa.LAUNCHES)
+
+
+@pytest.mark.cuda
+def test_self_attention_on_cuda_takes_the_kernels_at_the_tiny_unets_head_dim(cuda_device):
+    """A qualifying self-attention (L >= 256) at head dim 32, the JAX
+    package's tiny UNets', goes through both kernels and agrees with the same
+    call on the CPU."""
     from sd_lora_trainer_tpu_torch.ops.attention import self_attention
 
-    x = torch.randn(1, 256, 64, device=cuda_device).bfloat16()  # 2 heads of 32
+    x = torch.randn(1, 256, 64, generator=torch.Generator().manual_seed(4))  # 2 heads of 32
+
+    def run(device):
+        leaf = x.to(device).bfloat16().requires_grad_()
+        out = self_attention(leaf, leaf, leaf, heads=2, use_flash=True)
+        (out.float() ** 2).sum().backward()
+        return out, leaf.grad
+
+    want = run("cpu")
     fa.reset_launch_counts()
-    with pytest.raises(ValueError, match="no flash kernel"):
-        self_attention(x, x, x, heads=2, use_flash=True)
-    assert fa.LAUNCHES == {"flash_fwd": 0, "flash_bwd": 0}
+    got = run(cuda_device)
+    torch.cuda.synchronize()
+    assert fa.LAUNCHES == {"flash_fwd": 1, "flash_bwd": 1}
+    for t, r in zip(got, want):
+        _close(t.cpu(), r)
 
 
 @pytest.mark.cuda

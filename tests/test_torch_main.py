@@ -1,7 +1,8 @@
 """The port's CLI trainer against the JAX package's artifact contract.
 
 - `python -m sd_lora_trainer_tpu_torch.main cfg.json` ("device": "cpu"): a
-  3-step tiny SDXL run writes the JAX package's artifact set; the LoRA's and
+  3-step tiny SDXL run, and one of the tiny SD1.5 (one text encoder, conv
+  projections, four levels), writes the JAX package's artifact set; the LoRA's and
   the embeddings' keys and shapes equal those of the JAX package's
   `save_checkpoint` for the same config (adapters made by its
   `create_lora_params` on the same checkpoint); training_args.json has the
@@ -22,6 +23,7 @@
 - the sharding checks place a run on its mesh or refuse it, as JAX's do.
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -42,7 +44,7 @@ from sd_lora_trainer_tpu.models.lora import create_lora_params as j_create_lora
 from sd_lora_trainer_tpu_torch import main as tmain
 from sd_lora_trainer_tpu_torch.config import TrainingConfig as TConfig
 from sd_lora_trainer_tpu_torch.models import synthesize as ts
-from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG
+from sd_lora_trainer_tpu_torch.models.unet import TINY_SD15_UNET_CONFIG, TINY_SDXL_UNET_CONFIG
 from sd_lora_trainer_tpu_torch.utils.safetensors_io import load_safetensors
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -78,7 +80,12 @@ def env(tmp_path_factory):
     for i, (w, h) in enumerate([(64, 64), (64, 64), (96, 64), (96, 64), (64, 96), (64, 96)]):
         Image.fromarray(rs.randint(0, 255, (h, w, 3), dtype=np.uint8)).save(data / f"{i}.png")
         (data / f"{i}.txt").write_text(f"a photo of a thing number {i}")
-    return {"root": root, "ckpt": ckpt, "data": str(data)}
+    # the tiny SD1.5 UNet's cross-attention takes the tiny CLIP-L's width
+    ckpt15 = str(root / "tiny_sd15.safetensors")
+    ts.synthesize_checkpoint(ckpt15, "sd15", dataclasses.replace(
+        TINY_SD15_UNET_CONFIG, cross_attention_dim=ts.TINY_CLIP_L_CONFIG.hidden_size),
+        ts.TINY_VAE_CONFIG, ts.TINY_CLIP_L_CONFIG, None, seed=0, device="cpu")
+    return {"root": root, "ckpt": ckpt, "ckpt_sd15": ckpt15, "data": str(data)}
 
 
 def _cfg(env, **kw):
@@ -92,9 +99,14 @@ def _cfg(env, **kw):
     return cfg
 
 
-def test_cli_writes_the_jax_artifact_set(env, tmp_path):
+@pytest.mark.parametrize("version", ["sdxl", "sd15"])
+def test_cli_writes_the_jax_artifact_set(env, tmp_path, version):
+    ckpt = env["ckpt"] if version == "sdxl" else env["ckpt_sd15"]
+    out_dir = tmp_path / "runs"
     cfg_path = tmp_path / "cfg.json"
-    cfg_path.write_text(json.dumps(_cfg(env, name="clirun", weight_type="fp32", device="cpu")))
+    cfg_path.write_text(json.dumps(_cfg(env, name="clirun", weight_type="fp32", device="cpu",
+                                        sd_model_version=version, ckpt_path=ckpt,
+                                        output_dir=str(out_dir))))
     proc = subprocess.run([sys.executable, "-m", "sd_lora_trainer_tpu_torch.main", str(cfg_path)],
                           cwd=str(tmp_path), capture_output=True, text=True,
                           timeout=600, env={**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"})
@@ -104,24 +116,24 @@ def test_cli_writes_the_jax_artifact_set(env, tmp_path):
                               if ln.startswith(tmain.SUMMARY_TAG))[len(tmain.SUMMARY_TAG):])
     assert len(summary["tot_loss"]) == 3 and all(np.isfinite(summary["tot_loss"]))
     assert summary["launches"]["train"] == {"flash_fwd": 0, "flash_bwd": 0}  # no kernel on the CPU
-    run_dir = env["root"] / "runs" / os.listdir(env["root"] / "runs")[0]
+    run_dir = out_dir / os.listdir(out_dir)[0]
     save_dir = run_dir / "checkpoints" / "checkpoint-3"
     files = sorted(os.listdir(save_dir))
-    assert files == sorted(["clirun_sdxl_lora.safetensors", "clirun_sdxl_embeddings.safetensors",
-                            "special_params.json", "training_args.json", "validation_grid.jpg",
-                            "img_0003_0.jpg"])
+    lora_file, emb_file = f"clirun_{version}_lora.safetensors", f"clirun_{version}_embeddings.safetensors"
+    assert files == sorted([lora_file, emb_file, "special_params.json", "training_args.json",
+                            "validation_grid.jpg", "img_0003_0.jpg"])
     assert os.path.exists(run_dir / "checkpoints" / "validation_grid_0003.jpg")
 
     # the JAX package's export of the same config
-    jm = jw.load_models_from_checkpoint(env["ckpt"], dtype=jnp.float32)
+    jm = jw.load_models_from_checkpoint(ckpt, dtype=jnp.float32)
     jlora = j_create_lora(jax.random.PRNGKey(0), jm.unet, rank=4)
-    rows = [jnp.zeros((3, 32)), jnp.zeros((3, 32))]
+    rows = [jnp.zeros((3, 32))] * (2 if version == "sdxl" else 1)
     jdir = str(tmp_path / "jax_export")
-    j_save_checkpoint(jdir, 3, "clirun", "sdxl", {"TOK": "<s0><s1><s2>"}, True, ti_rows=rows,
+    j_save_checkpoint(jdir, 3, "clirun", version, {"TOK": "<s0><s1><s2>"}, True, ti_rows=rows,
                       unet_lora=jlora)
     assert sorted(os.listdir(jdir)) == [f for f in files if f.endswith((".safetensors", ".json"))
                                         and f != "training_args.json"]
-    for fname in ("clirun_sdxl_lora.safetensors", "clirun_sdxl_embeddings.safetensors"):
+    for fname in (lora_file, emb_file):
         mine = {k: tuple(v.shape) for k, v in load_safetensors(str(save_dir / fname)).items()}
         ref = {k: tuple(v.shape) for k, v in load_safetensors(os.path.join(jdir, fname)).items()}
         assert mine == ref, fname
@@ -132,12 +144,12 @@ def test_cli_writes_the_jax_artifact_set(env, tmp_path):
     jfields = set(JConfig(**_cfg(env), _testing_no_output_dir=True).model_dump())
     assert set(args) == jfields
     assert args["training_attributes"]["validation_prompts"] == [""]
-    assert args["sd_model_version"] == "sdxl" and args["train_img_size"] == [64, 64]
+    assert args["sd_model_version"] == version and args["train_img_size"] == [64, 64]
 
     # the from-disk render reads the checkpoint back onto the base
     from sd_lora_trainer_tpu_torch.inference import render_images_eval
 
-    prompts = render_images_eval(env["ckpt"], str(save_dir), (64, 64), n_imgs=1, n_steps=2,
+    prompts = render_images_eval(ckpt, str(save_dir), (64, 64), n_imgs=1, n_steps=2,
                                  dtype=torch.float32, precision="fp32", device="cpu")
     assert prompts == [""] and os.path.exists(save_dir / "img_0000_0.jpg")
 
