@@ -10,8 +10,13 @@ backward: the plan of the port's first slices), then "auto", the product
 default that `StepConfig.from_config` resolves (the base quantized to int8
 in place, `light+save:flash_out*,flash_lse*`: the plain resnet layers keep
 their activations, the attention layers keep the flash residuals). `--plan`
-runs one plan alone ("off": a bf16 base, nothing recomputed). Phases, each
-fatal on failure (the script exits non-zero and prints no result):
+runs one plan alone ("off": a bf16 base, nothing recomputed). Every
+single-process step runs as the trainer runs it on a card: one CUDA graph
+per step function and batch shape (training/step.py), its first step eager,
+its second captured and replayed, every later one a replay; the train,
+graph, optim, cli, sd15 and tools paths check that their steps ran so, and
+time only replays. Phases, each fatal on failure (the script exits non-zero
+and prints no result):
 1. device: refuses to run without CUDA; prints the card's name and power
    limit, builds the flash kernels (flash_fwd, the fused flash_bwd) from
    csrc/ with nvcc, one unit per padded head dim 16-256 and kernel, all at
@@ -34,9 +39,19 @@ fatal on failure (the script exits non-zero and prints no result):
    base against the bf16 one;
 4. train: the full-width SDXL UNet (random weights from a seed, bf16), both
    text encoders, rank-16 LoRA on the 577 default sites, 3 TI rows per
-   encoder and the three-group AdamW; per plan 1 warm-up and 3 timed steps at
-   1024px, DAAM on, then one step under torch.profiler (device time by kernel
-   family), with the kernel launches counted per step;
+   encoder and the three-group AdamW; per plan the eager first step, the
+   capture, and 3 timed replays at 1024px, DAAM on, then one step under
+   torch.profiler (device time by kernel family, the graph's kernels
+   included), with the kernel launches counted per step (a replay's on the
+   device, ops/flash_attention.py) and, in the profiled step, as the
+   device ran them;
+11. graph (after phase 4): the captured step against the eager one on phase
+   4's trained state: GRAPH_STEPS steps eagerly twice and as the capture and
+   its replays, each from the same saved train state; each graph loss and
+   the run's update within GRAPH_FACTOR times the two eager runs'
+   difference, the generator's state bit-equal, the same flash launches,
+   counted and in a profiled step of each; s/step, device s/step, busy
+   share, kernels a step, capture seconds and peak memory of both;
 5. export: the trained adapters and TI rows through `save_checkpoint` (the
    kohya LoRA, the embeddings, special_params.json) and back through
    `load_checkpoint`, and the train state through `save_train_state` and
@@ -49,7 +64,7 @@ fatal on failure (the script exits non-zero and prints no result):
    (sharding_mode "fsdp" on one card, the plan "auto" resolves to there, a
    bf16 base) under AdamW, then AdamW8bit, a few steps each, with s/step,
    peak memory, the optimizer state's bytes and the update's own time
-   (CUDA events around the optimizer's step); the 8-bit state must be uint8
+   (CUDA events around two eager updates after the steps); the 8-bit state must be uint8
    with one fp32 scale per 2048-element block and peak below AdamW's; then
    LoRA+TI on the default plan (fused qkv, int8 base) under Prodigy (UNet
    and TI, d of each group printed per step, above d0 once the first update
@@ -115,8 +130,9 @@ and backward under `offload:flash_out*,flash_lse*` against
 pinned host memory, the peak below save:'s; s/step of each).
 It then prints the `kernels` JSON line (launches from the cli run, by path
 in `launches_by_path`: the train plans, the optim phase's paths, the cli
-run, the sd15 run, the tools of phase 9 and rank 0 of each parallel run;
-each kernel's every case under `cases`), the nvidia-smi
+run, the sd15 run, the tools of phase 9 and rank 0 of each parallel run,
+a captured step's replays counted on the device where they launch; each
+kernel's every case under `cases`), the nvidia-smi
 line, and as the last line the result object. A `[time]` line after each
 phase gives the seconds since the start.
 """
@@ -190,6 +206,17 @@ KERNEL_CASES = [
 ]
 # calls per UNet pass at SDXL 1024px: 10 blocks at 4096 tokens, 60 at 1024
 MAIN_PATH_CALLS = {"sdxl_4096": 10, "sdxl_1024": 60}
+
+
+# a step function's first step for a batch shape runs eagerly and its second
+# is captured (training/step.py): timed steps come after these
+GRAPH_WARM = 2
+GRAPH_STEPS = 4
+# phase 11's gate: the graph run within this factor of the two eager runs'
+# difference (flash_bwd's atomic dq makes two eager runs differ), with a
+# floor of GRAPH_ULPS float32 roundings of each loss
+GRAPH_FACTOR = 5
+GRAPH_ULPS = 8
 
 
 def check(cond: bool, msg: str) -> None:
@@ -410,7 +437,7 @@ def phase_reference():
         run["sc"] = dataclasses.replace(run["sc"], remat=remat)
         fa.reset_launch_counts()
         losses[name], grads[name] = _lora_b_grads(run, draws, device)
-        launched[name] = dict(fa.LAUNCHES)
+        launched[name] = fa.launch_counts()
     rel = abs(losses["full"] - losses["cpu"]) / abs(losses["cpu"])
     g_rel = _rel(grads["full"], grads["cpu"])
     log(f"[reference] small SDXL loss cuda {losses['full']:.6f} cpu {losses['cpu']:.6f} "
@@ -595,53 +622,170 @@ def _train_plan(run, plan: str, default):
     train_step = ts.make_train_step(run["sc"])
     expected = PLAN_LAUNCHES[plan]
     fa.reset_launch_counts()  # this plan's run of the main path starts here
-    step_secs, before = [], dict(fa.LAUNCHES)
-    for i in range(4):
+    step_secs, before = [], fa.launch_counts()
+    for i in range(GRAPH_WARM + 3):
         torch.cuda.synchronize()
         t = time.perf_counter()
         metrics = train_step(run["state"], run["batch"], run["frozen"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        counts = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
-        before = dict(fa.LAUNCHES)
+        now = fa.launch_counts()
+        counts = {n: now[n] - before[n] for n in now}
+        before = now
         vals = {k: float(v) for k, v in metrics.items()}
-        kind = "warm-up" if i == 0 else "timed"
+        kind = ("eager first step", "capture + replay")[i] if i < GRAPH_WARM else "timed"
         log(f"[train] {plan} step {i} ({kind}) {secs:.3f} s/step {bs / secs:.3f} imgs/s "
             f"launches {counts} " + json.dumps(vals))
         check(all(math.isfinite(x) for x in vals.values()), f"{plan} step {i}: non-finite metric")
         check(vals["grad_norm"] > 0, f"{plan} step {i}: grad_norm {vals['grad_norm']} is not > 0")
         check(counts == expected, f"{plan} step {i}: launches {counts} != {expected}")
-        if i:
+        if i >= GRAPH_WARM:
             step_secs.append(secs)
-    launches = dict(fa.LAUNCHES)
+    capture = _check_graph(train_step, f"train {plan}")
+    launches = fa.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
     mean = sum(step_secs) / len(step_secs)
     log(f"[train] SDXL 1024px bs={bs} plan {plan}: {mean:.3f} s/step, {bs / mean:.3f} imgs/s "
-        f"(mean of {len(step_secs)} timed steps), peak memory {peak:.2f} GiB")
+        f"(mean of {len(step_secs)} timed replays), peak memory {peak:.2f} GiB, capture "
+        f"{capture['capture_s']:.2f} s")
     prof = _profile_step(train_step, run, expected)
     log(f"[profile] {plan}: device busy share of the mean timed step: {prof['device_s'] / mean:.1%}")
     return {"s_per_step": mean, "imgs_per_s": bs / mean, "timed_steps": step_secs,
             "peak_gib": peak, "gib_freed": freed, "busy_share": prof["device_s"] / mean,
-            **prof, "launches": launches}
+            "capture_s": capture["capture_s"], **prof, "launches": launches}
+
+
+def _check_graph(train_step, what: str, keys: int = 1) -> dict:
+    """The step ran as captured graphs, one per key; returns the first capture."""
+    caps = train_step.captures()
+    check(train_step.mode == "graph" and len(caps) == keys,
+          f"{what}: the step ran {train_step.mode} ({train_step.eager_reason}) with "
+          f"{len(caps)} captures, not as {keys} graph(s)")
+    return caps[0]
 
 
 def _profile_step(train_step, run, expected) -> dict:
     """One more step under torch.profiler: its device kernel seconds, kernel
-    count and ms by kernel family (the flash family split by kernel)."""
+    count and ms by kernel family (the flash family split by kernel). The
+    flash launches counted, and the flash kernels the device ran, must both
+    be `expected`."""
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
     from sd_lora_trainer_tpu_torch.utils.profiling import profile_device
 
-    before = dict(fa.LAUNCHES)
+    before = fa.launch_counts()
     wall, table = profile_device(lambda: train_step(run["state"], run["batch"], run["frozen"]),
                                  torch.device("cuda"))
-    counts = {n: fa.LAUNCHES[n] - before[n] for n in fa.LAUNCHES}
+    now = fa.launch_counts()
+    counts = {n: now[n] - before[n] for n in now}
     check(counts == expected, f"profiled step: launches {counts} != {expected}")
+    check(table.flash_launches == expected,
+          f"profiled step: the device ran flash kernels {table.flash_launches} != {expected}")
     check(table.kernels > 0, "the profiler recorded no device time")
     log(f"[profile] profiled step wall {wall:.3f} s (profiler on)")
     for line in table.lines("[profile]"):
         log(line)
     return {"device_s": table.device_s, "kernels": table.kernels, "family_ms": table.family_ms,
             "flash_ms": {k[:40]: v for k, v in table.flash_ms.items()}}
+
+
+def phase_graph(run) -> dict:
+    """Phase 11: the step as one captured graph against the eager step, on
+    phase 4's trained full-width SDXL LoRA+TI run (the "auto" plan). From
+    one saved train state: GRAPH_STEPS eager steps, twice, then as many
+    graph steps, the capture and its replays (the graph's key took its eager
+    first step from the same state beforehand). Gates: each graph step's
+    loss and the run's update within GRAPH_FACTOR times the two eager runs'
+    difference, the generator's state bit-equal after the steps, the same
+    flash launches (the replays' counted on the device). Then one profiled
+    step of each: s/step, device s/step, busy share, kernels a step, capture
+    seconds and peak memory, and the flash kernels the device ran, which
+    must be a step's share of the launches counted."""
+    import numpy as np
+
+    from sd_lora_trainer_tpu_torch import checkpoint as ck
+    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.training import step as ts
+    from sd_lora_trainer_tpu_torch.utils.profiling import profile_device
+
+    state, batch, frozen = run["state"], run["batch"], run["frozen"]
+    bs = run["config"].train_batch_size
+    steps = {"eager": ts.make_train_step(run["sc"], capture=False),
+             "graph": ts.make_train_step(run["sc"])}
+    tmp = tempfile.mkdtemp(prefix="graph_", dir=os.path.join(ROOT, "build"))
+    path = os.path.join(tmp, "train_state.safetensors")
+    out = {}
+    try:
+        ck.save_train_state(path, state)
+        start = [p.detach().clone() for p in state.optimizer.params()]
+        ck.restore_train_state(path, state)
+        steps["graph"](state, batch, frozen)  # the key's eager first step
+        for name in ("eager", "eager_again", "graph"):
+            step = steps[name.split("_")[0]]
+            ck.restore_train_state(path, state)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            fa.reset_launch_counts()  # this path's run starts here
+            secs, losses = [], []
+            for _ in range(GRAPH_STEPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                metrics = step(state, batch, frozen)
+                torch.cuda.synchronize()
+                secs.append(time.perf_counter() - t)
+                losses.append(float(metrics["tot_loss"]))
+            out[name] = {"steps_s": secs, "losses": losses, "launches": fa.launch_counts(),
+                         "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                         "final": [p.detach().clone() for p in state.optimizer.params()],
+                         "generator": state.generator.get_state()}
+        for name in ("eager", "graph"):  # one more step each, profiled
+            wall, table = profile_device(lambda: steps[name](state, batch, frozen),
+                                         torch.device("cuda"))
+            timed = out[name]["steps_s"][1:]  # the graph's first is its capture
+            mean = sum(timed) / len(timed)
+            out[name].update(s_per_step=mean, device_s=table.device_s, kernels=table.kernels,
+                             busy_share=table.device_s / mean, traced=table.flash_launches)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    eager, again, graph = out["eager"], out["eager_again"], out["graph"]
+    capture = _check_graph(steps["graph"], "graph phase")
+    eps = float(np.finfo(np.float32).eps)
+    loss_ok = [abs(g - e) <= GRAPH_FACTOR * max(abs(a - e), GRAPH_ULPS * eps * abs(e))
+               for e, a, g in zip(eager["losses"], again["losses"], graph["losses"])]
+    rel_graph = _rel_l2(graph["final"], eager["final"], start)
+    rel_again = _rel_l2(again["final"], eager["final"], start)
+    for name in ("eager", "graph"):
+        r = out[name]
+        log(f"[graph] {name}: SDXL 1024px bs={bs}, plan {run['sc'].remat!r}: "
+            f"{r['s_per_step']:.3f} s/step ({bs / r['s_per_step']:.3f} imgs/s; steps "
+            f"{[round(x, 3) for x in r['steps_s']]} s), device {r['device_s']:.3f} s/step, busy "
+            f"{r['busy_share']:.1%}, {r['kernels']} kernels a step (flash {r['traced']}), peak "
+            f"{r['peak_gib']:.2f} GiB, "
+            f"losses {[round(x, 6) for x in r['losses']]}, flash launches {r['launches']}")
+    log(f"[graph] capture {capture['capture_s']:.2f} s, its pool +{capture['pool_gib']:.2f} GiB "
+        f"reserved, flash launches a replay {capture['launches']}; peak {graph['peak_gib']:.2f} "
+        f"GiB graph vs {eager['peak_gib']:.2f} GiB eager")
+    log(f"[graph] graph vs eager: losses {[f'{abs(g - e):.2e}' for e, g in zip(eager['losses'], graph['losses'])]}, "
+        f"two eager runs {[f'{abs(a - e):.2e}' for e, a in zip(eager['losses'], again['losses'])]}; "
+        f"the {GRAPH_STEPS}-step update rel L2 {rel_graph:.2e}, two eager runs {rel_again:.2e} "
+        f"(gate {GRAPH_FACTOR}x); generator state equal "
+        f"{torch.equal(graph['generator'], eager['generator'])}")
+    check(all(loss_ok), f"graph losses {graph['losses']} against eager {eager['losses']} "
+          f"(again {again['losses']})")
+    check(rel_graph <= GRAPH_FACTOR * max(rel_again, 1e-6),
+          f"the graph run's update differs from the eager run's by rel L2 {rel_graph:.2e} "
+          f"({rel_again:.2e} between two eager runs)")
+    check(torch.equal(graph["generator"], eager["generator"])
+          and torch.equal(again["generator"], eager["generator"]),
+          "the generator's state after the graph steps differs from the eager steps'")
+    check(graph["launches"] == eager["launches"] == again["launches"],
+          f"flash launches: graph {graph['launches']}, eager {eager['launches']}")
+    per_step = {k: v / GRAPH_STEPS for k, v in eager["launches"].items()}
+    check(graph["traced"] == eager["traced"] == per_step,
+          f"flash kernels in a profiled step: graph {graph['traced']}, eager {eager['traced']}, "
+          f"counted a step {per_step}")
+    return {name: {k: v for k, v in r.items() if k not in ("final", "generator")}
+            for name, r in out.items()} | {"capture": capture}
 
 
 def phase_export(run):
@@ -729,7 +873,7 @@ def _leaves(tree):
 
 
 FF_CONFIG = os.path.join(ROOT, "train_configs", "full_finetuning_example.json")
-OPTIM_STEPS = 3  # per full-finetune optimizer: 1 warm-up, then timed
+OPTIM_STEPS = 4  # per full-finetune optimizer: the eager first step, the capture, 2 timed
 # the optim phase's paths, each a run of the main path in `launches_by_path`
 OPTIM_PATHS = ("ff_adamw", "ff_adamw8bit", "prodigy", "lora_adamw")
 # resume on the card: |resumed - whole| after steps 3-4, relative L2 over the
@@ -754,20 +898,23 @@ def _state_bytes(optimizer) -> int:
     return sum(t.numel() * t.element_size() for t in optimizer.state_tensors().values())
 
 
-def _timed_updates(optimizer) -> list:
-    """Wrap `optimizer.step` in CUDA events; returns the list of (start,
-    end) event pairs it fills, one per update."""
-    events, step = [], optimizer.step
-
-    def timed():
+def _update_ms(optimizer, n: int = 2) -> list:
+    """The update's own ms from CUDA events, over n updates run eagerly
+    after the steps (inside a captured step it has no events of its own),
+    on zero gradients made before the first: the same work as a step's."""
+    with torch.no_grad():
+        for p in optimizer.params():
+            p.grad = torch.zeros_like(p)
+    out = []
+    for _ in range(n):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         start.record()
-        step()
+        optimizer.step()
         end.record()
-        events.append((start, end))
-
-    optimizer.step = timed
-    return events
+        end.synchronize()
+        out.append(start.elapsed_time(end))
+    optimizer.zero_grad()
+    return out
 
 
 def _optim_card_vs_cpu() -> dict:
@@ -886,7 +1033,6 @@ def _optim_full_finetune(base, optimizer_type: str) -> dict:
     run = _assemble(config, frozen, {"unet": trainable_copy(frozen.unet_params)},
                     base["batch"], base["generator"])
     state, bs = run["state"], config.train_batch_size
-    updates = _timed_updates(state.optimizer)
     train_step = ts.make_train_step(run["sc"])
     fa.reset_launch_counts()  # this path's run starts here
     secs, losses = [], []
@@ -900,9 +1046,10 @@ def _optim_full_finetune(base, optimizer_type: str) -> dict:
         losses.append(vals["tot_loss"])
         check(all(math.isfinite(x) for x in vals.values()),
               f"full finetune {optimizer_type} step {i}: non-finite metric {vals}")
-    launches = dict(fa.LAUNCHES)
+    launches = fa.launch_counts()
     peak = torch.cuda.max_memory_allocated() / 2**30
-    update_ms = [a.elapsed_time(b) for a, b in updates]
+    _check_graph(train_step, f"full finetune {optimizer_type}")
+    update_ms = _update_ms(state.optimizer)
     n_params = sum(p.numel() for p in state.optimizer.params())
     state_b = _state_bytes(state.optimizer)
     opt = state.optimizer.groups["unet"]
@@ -919,7 +1066,7 @@ def _optim_full_finetune(base, optimizer_type: str) -> dict:
     else:
         layout = ", ".join(sorted({str(v.dtype) for v in opt.state_tensors().values()
                                    if v.ndim > 0}))
-    mean = sum(secs[1:]) / len(secs[1:])
+    mean = sum(secs[GRAPH_WARM:]) / len(secs[GRAPH_WARM:])
     per_step = {k: v / OPTIM_STEPS for k, v in launches.items()}
     log(f"[optim] full finetune {optimizer_type}: SDXL 1024px bs={bs}, plan {run['sc'].remat!r}, "
         f"{n_params / 1e9:.3f}B trainable ({len(opt.params)} tensors), steps "
@@ -969,7 +1116,7 @@ def _optim_resume(config, frozen, trainable, batch, gen, label: str) -> dict:
             if i == 1:
                 ck.save_train_state(path, state)
                 at_2 = [p.detach().clone() for p in state.optimizer.params()]
-        launches = dict(fa.LAUNCHES)
+        launches = fa.launch_counts()
         whole = [p.detach().clone() for p in state.optimizer.params()]
 
         def rerun():
@@ -996,6 +1143,7 @@ def _optim_resume(config, frozen, trainable, batch, gen, label: str) -> dict:
             return math.sqrt(num / sum(float(((b - a) ** 2).sum()) for b, a in zip(y, at_2)))
 
         resumed, again = rerun(), rerun()
+        _check_graph(train_step, label, keys=3)  # the run's state and the two templates
         rel_resume, rel_again = rel(resumed, whole), rel(again, resumed)
         max_abs = max(float((b - w).abs().max()) for b, w in zip(resumed, whole))
         del resumed, again
@@ -1005,10 +1153,10 @@ def _optim_resume(config, frozen, trainable, batch, gen, label: str) -> dict:
         numerators = {n: float(o.d_numerator) for n, o in prodigy.items()}
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    mean = sum(secs[1:]) / len(secs[1:])
+    mean = sum(secs[GRAPH_WARM:]) / len(secs[GRAPH_WARM:])
     log(f"[optim] {label}: SDXL 1024px bs={bs}, plan {run['sc'].remat!r}, optimizers "
         f"{state.optimizer.kinds()}, steps {[round(x, 3) for x in secs]} s ({mean:.3f} s/step "
-        f"after the first), losses {[round(x, 5) for x in losses]}, flash launches a step "
+        f"after the eager first step and the capture), losses {[round(x, 5) for x in losses]}, flash launches a step "
         f"{ {k: v / 4 for k, v in launches.items()} }")
     if prodigy:
         log(f"[optim] {label}: d by step (1-{len(ds)}) "
@@ -1198,6 +1346,8 @@ def phase_cli():
         losses = summ["tot_loss"]
         check(len(losses) == CLI_STEPS and all(math.isfinite(x) for x in losses),
               f"losses {losses}")
+        check(summ["step_mode"] == "graph" and summ["captures"],
+              f"the CLI's steps ran {summ['step_mode']}, captures {summ['captures']}")
         train_l, render_l = summ["launches"]["train"], summ["launches"]["render"]
         n_img = sum(summ["rendered_images"])
         render_fwd = sum(r["flash_fwd"] for r in render_l)
@@ -1212,9 +1362,11 @@ def phase_cli():
         log(f"[cli] latent cache {summ['latent_cache_s']:.1f} s ({enc['images']} images, "
             f"{enc['images'] / summ['latent_cache_s']:.2f} images/s; VAE encode {enc['s']:.2f} s, "
             f"peak {enc['peak_gib']:.2f} GiB with {enc['resident_gib']:.2f} GiB resident)")
-        log(f"[cli] loop {summ['s_per_step']:.3f} s/step over {summ['steps']} steps "
+        log(f"[cli] loop {summ['s_per_step']:.3f} s/step over {summ['steps']} steps, replays "
+            f"{summ['s_per_replay']:.3f} s/step (the loop less the first step and the capture) "
             f"(bs 4, 1024px; host batch prep {summ['batch_prep_s'] / summ['steps']:.3f} s/step); "
-            f"losses {[round(x, 5) for x in losses]}; launches {train_l}")
+            f"losses {[round(x, 5) for x in losses]}; launches {train_l}; step mode "
+            f"{summ['step_mode']}, first step and capture {[(round(c['warmup_s'], 2), round(c['capture_s'], 2)) for c in summ['captures']]} s")
         log(f"[cli] checkpoint {sum(summ['checkpoint_s']):.2f} s")
         log(f"[cli] render {sum(summ['render_s']) / n_img:.2f} s per image ({n_img} images at "
             f"{CLI_RES}px, 25 steps), flash_fwd launches per image {render_fwd / n_img:.0f}")
@@ -1326,6 +1478,8 @@ def phase_sd15():
         losses = summ["tot_loss"]
         check(len(losses) == SD15_STEPS and all(math.isfinite(x) for x in losses),
               f"SD1.5 losses {losses}")
+        check(summ["step_mode"] == "graph" and summ["captures"],
+              f"the SD1.5 steps ran {summ['step_mode']}, captures {summ['captures']}")
         train_l, render_l = summ["launches"]["train"], summ["launches"]["render"]
         per_step = {k: v / summ["steps"] for k, v in train_l.items()}
         check(per_step == {"flash_fwd": SD15_FLASH_BLOCKS, "flash_bwd": SD15_FLASH_BLOCKS},
@@ -1345,8 +1499,10 @@ def phase_sd15():
         log(f"[sd15] load {summ['load_s']:.1f} s; preprocess {summ['preprocess_s']:.1f} s "
             f"(face-mask backend {backend}); latent cache {summ['latent_cache_s']:.1f} s "
             f"({enc['images']} images; VAE encode {enc['s']:.2f} s, peak {enc['peak_gib']:.2f} GiB)")
-        log(f"[sd15] loop {summ['s_per_step']:.3f} s/step over {summ['steps']} steps, peak "
-            f"{summ['loop_peak_gib']:.2f} GiB; losses {[round(x, 5) for x in losses]}")
+        log(f"[sd15] loop {summ['s_per_step']:.3f} s/step over {summ['steps']} steps, replays "
+            f"{summ['s_per_replay']:.3f} s/step (the loop less the first step and the capture), peak "
+            f"{summ['loop_peak_gib']:.2f} GiB; losses {[round(x, 5) for x in losses]}; step mode "
+            f"{summ['step_mode']}, first step and capture {[(round(c['warmup_s'], 2), round(c['capture_s'], 2)) for c in summ['captures']]} s")
         log(f"[sd15] {len(got)} UNet LoRA keys as the JAX export's, embeddings {emb}; checkpoint "
             f"{sum(summ['checkpoint_s']):.2f} s")
         log(f"[sd15] render {sum(summ['render_s']) / n_img:.2f} s per image ({n_img} images at "
@@ -1356,7 +1512,7 @@ def phase_sd15():
         flops = _sd15_step_flops(res, bs)
         log(f"[sd15] model FLOPs of the face recipe's step ({res}px, bs {bs}; bench.step_flops, "
             f"remat off): {flops / 1e12:.3f} TF; {flops / summ['s_per_step'] / 1e12:.1f} TF/s at "
-            f"the loop's s/step")
+            f"the loop's s/step, {flops / summ['s_per_replay'] / 1e12:.1f} TF/s at the replays'")
         return {"summary": summ, "train_launches": train_l, "render_launches": render,
                 "step_flops": flops}
     finally:
@@ -1485,9 +1641,11 @@ def _parallel_steps(config, frozen, trainable, batch, steps: int, plan=None,
                 grad_rel = (_rel_l2(grads, ref_grads), _sign_frac(grads, ref_grads))
                 grads = None
     out = {"grads": grads, "grad_rel": grad_rel, "steps_s": secs,
-           "s_per_step": sum(secs[1:]) / max(len(secs) - 1, 1),
+           # after the first step, and in graph mode after the capture too
+           # (nan when no step is left: the one-process fsdp runs)
+           "s_per_step": _mean(secs[GRAPH_WARM if step.mode == "graph" else 1:]),
            "losses": losses, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-           "launches": dict(fa.LAUNCHES), "collectives": sh.collective_stats(),
+           "launches": fa.launch_counts(), "collectives": sh.collective_stats(),
            "kinds": state.optimizer.kinds()}
     state.optimizer.zero_grad()
     gc.collect()
@@ -1514,6 +1672,10 @@ def _parallel_steps(config, frozen, trainable, batch, steps: int, plan=None,
     gc.collect()
     torch.cuda.empty_cache()
     return out
+
+
+def _mean(xs) -> float:
+    return sum(xs) / len(xs) if xs else float("nan")
 
 
 def _whole_grad(t, plan):
@@ -1662,7 +1824,7 @@ def phase_parallel() -> dict:
                        if "update_rel" in e else "")
                 log(f"[parallel] {run} rank {r['rank']}/{r['world']} {opt}: {mode}, "
                     f"{r['mesh']}; steps {[round(x, 3) for x in e['steps_s']]} s "
-                    f"({e['s_per_step']:.3f} s/step after the first), peak {e['peak_gib']:.2f} "
+                    f"({e['s_per_step']:.3f} s/step timed), peak {e['peak_gib']:.2f} "
                     f"GiB, collectives {coll} ({e['collectives']['total_bytes'] / 1e9:.3f} GB), "
                     f"flash launches {e['launches']}, losses "
                     f"{[round(x, 5) for x in e['losses']]}{ref}")
@@ -1747,13 +1909,13 @@ def phase_offload(run) -> dict:
                                             stash8="")
             step = ts.make_train_step(run["sc"])
             secs = []
-            for _ in range(3):
+            for _ in range(GRAPH_WARM + 2):  # save: runs as a graph, offload: eagerly
                 torch.cuda.synchronize()
                 t = time.perf_counter()
                 step(run["state"], run["batch"], run["frozen"])
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t)
-            out[kind]["s_per_step"] = sum(secs[1:]) / 2
+            out[kind]["s_per_step"] = sum(secs[GRAPH_WARM:]) / 2
     finally:
         cn._Offloaded = real
         run["sc"] = base
@@ -1828,6 +1990,7 @@ def _bench_line(extra_env, what, step_launches=None):
     for ln in err.splitlines():
         if ln.startswith("[bench +"):  # its diagnostics, the profile table aside
             log(f"[tools] {what}: {ln}")
+    check("step mode graph" in err, f"{what}: the bench's steps did not run as a graph")
     cfg = res["config"]
     check(res["value"] > 0, f"{what}: value {res['value']}")
     check(cfg["flash_launches_per_step"] == step_launches,
@@ -1848,9 +2011,10 @@ def _flop_cross_check() -> dict:
     run = bench.setup(bench.Levers.from_env({"BENCH_BS": "1", "BENCH_REMAT": "off",
                                              "BENCH_SCAN": "1"}))
     batch = run.batch(128, 128, np.random.RandomState(0))
-    before = dict(fa.LAUNCHES)
+    before = fa.launch_counts()
     flash = bench.step_flops(run, batch)
-    launched = {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    now = fa.launch_counts()
+    launched = {k: now[k] - before[k] for k in now}
     run.sc = dataclasses.replace(run.sc, use_flash=False)
     plain = bench.step_flops(run, batch)
     rel = abs(flash - plain) / plain
@@ -1910,8 +2074,9 @@ def phase_tools() -> dict:
     by_path["bench_inference"] = {k: round(v * calls) for k, v in per_call.items()}
 
     prof_dir = os.path.join(ROOT, "build", "tools_profile")
-    stdout, _, secs = _tool(["sd_lora_trainer_tpu_torch.scripts.profile_step", "--steps", "2",
-                             "--out", prof_dir])
+    stdout, err, secs = _tool(["sd_lora_trainer_tpu_torch.scripts.profile_step", "--steps", "2",
+                               "--out", prof_dir])
+    check("step mode graph" in err, "profile_step: its steps did not run as a graph")
     for ln in stdout.splitlines()[:-1]:
         log(f"[tools] profile_step: {ln}")
     live = _json_line(stdout, "profile_step")
@@ -1926,8 +2091,9 @@ def phase_tools() -> dict:
         f"{PROFILE_TOL:.0e}); trace {os.path.getsize(summary['trace']) / 1e6:.1f} MB")
     check(live["device_s"] > 0 and worst <= PROFILE_TOL,
           f"profile_step: live {fam_live} against the trace {fam_trace}")
-    check(live["launches_per_step"] == TOOLS_STEP_LAUNCHES,
-          f"profile_step: flash launches per step {live['launches_per_step']}")
+    check(live["launches_per_step"] == live["traced_launches_per_step"] == TOOLS_STEP_LAUNCHES,
+          f"profile_step: flash launches per step {live['launches_per_step']}, in the trace "
+          f"{live['traced_launches_per_step']}")
     shutil.rmtree(prof_dir, ignore_errors=True)
 
     conv_dir = os.path.join(ROOT, "build", "convergence_torch")
@@ -1981,6 +2147,8 @@ def main() -> int:
     phase_reference()
     run, results = phase_train([args.plan] if args.plan else ["full", "auto"])
     lap("train")
+    graph = phase_graph(run)
+    lap("graph")
     phase_export(run)
     offload = phase_offload(run)
     del run
@@ -1997,6 +2165,7 @@ def main() -> int:
     lap("parallel")
     launches = cli["launches"]
     by_path = {f"train_{p}": r["launches"] for p, r in results.items()}
+    by_path.update(graph_eager=graph["eager"]["launches"], graph=graph["graph"]["launches"])
     by_path.update({path: optim[path]["launches"] for path in OPTIM_PATHS})
     by_path.update(cli_train=cli["train_launches"], cli_render=cli["render_launches"])
     by_path.update(sd15_train=sd15["train_launches"], sd15_render=sd15["render_launches"])
@@ -2007,8 +2176,8 @@ def main() -> int:
         bound, by = _bound_ms(s["flops"], s["bytes"])
         check(launches[name] > 0, f"{name} was never launched on the main path")
         check(all(by_path[path][name] > 0 for path in OPTIM_PATHS + tuple(PARALLEL_RUNS)
-                  + ("sd15_train",)),
-              f"{name} was not launched on every optim, parallel and sd15 path: {by_path}")
+                  + ("sd15_train", "graph")),
+              f"{name} was not launched on every optim, parallel, sd15 and graph path: {by_path}")
         check(all(by_path[path][name] > 0 for path, names in TOOL_PATHS.items() if name in names),
               f"{name} was not launched on every tool path: {by_path}")
         entries.append({

@@ -12,17 +12,24 @@ cached-latent batches. Nothing is downloaded.
 
 Knobs: BENCH_MODEL (sdxl | sd15), BENCH_BS (8), BENCH_RES (1024; 512 for
 sd15), BENCH_STEPS (10), BENCH_SCAN (4: steps per call, the port's
-`run_steps` over K batches, `config.steps_per_call`; eager PyTorch has no
-scan, so K only groups the calls), BENCH_REMAT (auto | full | off | light |
+`run_steps` over K batches, `config.steps_per_call`; on the card a step is
+one CUDA graph, so a call is K replays, as JAX's call is one K-step scan),
+BENCH_REMAT (auto | full | off | light |
 dots | save:<names> | offload:<names> | light+save:<names>), BENCH_FLASH (1),
 BENCH_FUSE_QKV (1), BENCH_STASH8 (names kept as int8; the save: plan must
 list them), BENCH_BASEQ ("" | int8 | int8+te), BENCH_BUCKETS
 ('1024x1024,832x1216': bucketed throughput, HxW, 64-px multiples, one step
 config per bucket with its own DAAM ratio w/h, calls alternating
-round-robin), BENCH_LOG_LOSSES=1 (every call's losses on stderr),
+round-robin), BENCH_GRAPH (1: the step as one CUDA graph, as the trainer
+runs it; 0: the eager step, to compare the two on one card),
+BENCH_LOG_LOSSES=1 (every call's losses on stderr),
 BENCH_TINY=1 (the tiny configs: the whole code path in seconds, for tests;
 never for numbers) and BENCH_PLATFORM=cpu (run on the CPU). Without a card,
 and without BENCH_PLATFORM=cpu, it prints an error line and exits 1.
+
+The warm-up call holds each bucket's eager first step and its capture
+(training/step.py), so the timed calls are replays; stderr says whether
+the step ran as a graph or eagerly, and the capture's seconds.
 
 stdout carries one JSON line: `metric`, `value`, `unit`, `vs_baseline`
 (against the reference's A100 anchor, 6.0 imgs/s at 512px,
@@ -82,6 +89,7 @@ class Levers:
     log_losses: bool
     tiny: bool
     device: torch.device
+    graph: bool = True
 
     @classmethod
     def from_env(cls, env=os.environ) -> "Levers":
@@ -91,6 +99,8 @@ class Levers:
         baseq = env.get("BENCH_BASEQ", "")
         if baseq not in ("", "int8", "int8+te"):
             raise BenchError(f"unknown BENCH_BASEQ={baseq!r}")
+        if env.get("BENCH_GRAPH", "1") not in ("0", "1"):
+            raise BenchError(f"unknown BENCH_GRAPH={env['BENCH_GRAPH']!r}")
         remat = env.get("BENCH_REMAT", "auto")
         if remat != "auto" and remat not in REMAT_WORDS and not remat.startswith(REMAT_PREFIXES):
             raise BenchError(f"unknown BENCH_REMAT={remat!r}")
@@ -113,7 +123,7 @@ class Levers:
             fuse_qkv=env.get("BENCH_FUSE_QKV", "1") == "1", stash8=env.get("BENCH_STASH8", ""),
             baseq=baseq, buckets=buckets,
             log_losses=env.get("BENCH_LOG_LOSSES") == "1", tiny=env.get("BENCH_TINY") == "1",
-            device=device,
+            device=device, graph=env.get("BENCH_GRAPH", "1") == "1",
         )
 
 
@@ -283,7 +293,7 @@ def make_call(run: BenchRun, sc, clock: Optional[StepClock] = None):
     """One bench call: `run_steps` over K batches, each step marked on `clock`."""
     from sd_lora_trainer_tpu_torch.training.step import make_train_step, run_steps
 
-    step = make_train_step(sc)
+    step = make_train_step(sc, capture=run.levers.graph)
     k = run.levers.scan_k
 
     def marked(state, batch, frozen):
@@ -301,7 +311,8 @@ def make_call(run: BenchRun, sc, clock: Optional[StepClock] = None):
 def launches_per_step(before: Dict[str, int], steps: int) -> Dict[str, float]:
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
 
-    return {k: (fa.LAUNCHES[k] - before[k]) / steps for k in fa.LAUNCHES}
+    now = fa.launch_counts()
+    return {k: (now[k] - before[k]) / steps for k in now}
 
 
 def step_flops(run: BenchRun, batch: Dict[str, torch.Tensor]) -> int:
@@ -314,6 +325,22 @@ def step_flops(run: BenchRun, batch: Dict[str, torch.Tensor]) -> int:
 
 def _loss(metrics) -> float:
     return float(metrics[-1]["tot_loss"])
+
+
+def log_step_mode(step, what: str = "") -> None:
+    """The step's mode (graph or eager, with the reason) and its captures."""
+    caps = step.captures()
+    secs = ", ".join(f"{c['capture_s']:.2f}" for c in caps)
+    first = ", ".join(f"{c['warmup_s']:.2f}" for c in caps)
+    log(f"{what}step mode {step.mode}"
+        + (f" ({step.eager_reason})" if step.eager_reason else "")
+        + (f", eager first step {first} s, captured in {secs} s, pool "
+           f"+{sum(c['pool_gib'] for c in caps):.2f} GiB" if caps else ""))
+
+
+def warmup_calls(lv: "Levers") -> int:
+    """Calls that hold a key's eager first step and its capture: 2 steps."""
+    return -(-2 // lv.scan_k)
 
 
 def run_uniform(run: BenchRun) -> dict:
@@ -332,10 +359,13 @@ def run_uniform(run: BenchRun) -> dict:
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    loss = _loss(call(batch))  # warm-up: the allocator's pools, cuDNN's plans
-    log(f"warm-up call ({lv.scan_k} steps) {time.perf_counter() - t0:.2f} s (loss {loss:.4f})")
+    for _ in range(warmup_calls(lv)):  # the eager first step and the capture
+        loss = _loss(call(batch))
+    log(f"warm-up ({warmup_calls(lv) * lv.scan_k} steps) {time.perf_counter() - t0:.2f} s "
+        f"(loss {loss:.4f})")
+    log_step_mode(step)
     n_calls = max(lv.steps // lv.scan_k, 1)
-    before = dict(fa.LAUNCHES)
+    before = fa.launch_counts()
     clock.marks.clear()
     profiling.synchronize(dev)
     clock.mark()
@@ -351,7 +381,7 @@ def run_uniform(run: BenchRun) -> dict:
     per_step = clock.seconds()
     launches = launches_per_step(before, n_steps)
     out = {"seconds": dt, "steps": n_steps, "loss": loss, "per_step_s": per_step,
-           "launches_per_step": launches, "flops_per_step": flops}
+           "launches_per_step": launches, "flops_per_step": flops, "step_mode": step.mode}
     log(f"{n_steps} steps in {dt:.3f} s ({dt / n_steps:.3f} s/step, "
         f"{lv.batch_size * n_steps / dt:.3f} imgs/s), final loss {loss:.4f}")
     log("per-step s: " + ", ".join(f"{s:.3f}" for s in per_step))
@@ -382,19 +412,24 @@ def run_bucketed(run: BenchRun) -> dict:
     lv, dev = run.levers, run.levers.device
     rng = np.random.RandomState(0)
     clock = StepClock(dev)
-    calls, batches = [], []
+    calls, steps, batches = [], [], []
     for h, w in lv.buckets:
         sc_b = dataclasses.replace(run.sc, daam_img_ratio=w / h)
-        calls.append(make_call(run, sc_b, clock)[0])
+        call, step = make_call(run, sc_b, clock)
+        calls.append(call)
+        steps.append(step)
         batches.append(run.batch(h // 8, w // 8, rng))
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     for (h, w), call, batch in zip(lv.buckets, calls, batches):
         t0 = time.perf_counter()
-        loss = _loss(call(batch))
-        log(f"bucket {h}x{w} warm-up call {time.perf_counter() - t0:.2f} s (loss {loss:.4f})")
+        for _ in range(warmup_calls(lv)):
+            loss = _loss(call(batch))
+        log(f"bucket {h}x{w} warm-up {time.perf_counter() - t0:.2f} s (loss {loss:.4f})")
+    for (h, w), step in zip(lv.buckets, steps):
+        log_step_mode(step, f"bucket {h}x{w}: ")
     n_calls = max(lv.steps // lv.scan_k, 2)
-    before = dict(fa.LAUNCHES)
+    before = fa.launch_counts()
     clock.marks.clear()
     profiling.synchronize(dev)
     clock.mark()
@@ -417,7 +452,8 @@ def run_bucketed(run: BenchRun) -> dict:
         log(f"bucket {name}: {sum(secs) / len(secs):.3f} s/step over {len(secs)} steps "
             f"({', '.join(f'{s:.3f}' for s in secs)})")
     out = {"seconds": dt, "steps": n_steps, "loss": loss, "launches_per_step": launches,
-           "s_per_step_by_bucket": {k: sum(v) / len(v) for k, v in by_bucket.items()}}
+           "s_per_step_by_bucket": {k: sum(v) / len(v) for k, v in by_bucket.items()},
+           "step_mode": steps[0].mode}
     if dev.type == "cuda":
         out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2**30
         log(f"peak memory {out['peak_gib']:.2f} GiB")
@@ -432,10 +468,12 @@ def result_line(run: BenchRun, timed: dict) -> dict:
     imgs_per_s = lv.batch_size * timed["steps"] / timed["seconds"]
     config = run.lever_config()
     config["device"] = profiling.device_description(lv.device)
-    # what the run did, beside the levers: its timed steps and their flash
-    # launches, and on a card its peak memory and the profiled step's busy share
-    config.update(timed_steps=timed["steps"], flash_launches_per_step=timed["launches_per_step"],
-                  **{k: timed[k] for k in ("peak_gib", "busy_share") if k in timed})
+    # what the run did, beside the levers: the step's mode (graph or eager),
+    # its timed steps, their seconds and flash launches, and on a card its
+    # peak memory and the profiled step's busy share
+    config.update(step_mode=timed["step_mode"], timed_steps=timed["steps"],
+                  flash_launches_per_step=timed["launches_per_step"],
+                  **{k: timed[k] for k in ("per_step_s", "peak_gib", "busy_share") if k in timed})
     if lv.buckets:
         mean_px = sum(h * w for h, w in lv.buckets) / len(lv.buckets)
         anchor = ANCHOR_IMGS_PER_S_512 * (512.0**2 / mean_px)

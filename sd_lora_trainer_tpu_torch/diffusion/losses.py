@@ -33,6 +33,7 @@ from typing import Dict, Tuple
 import torch
 
 from sd_lora_trainer_tpu_torch.diffusion.schedulers import DDPMSchedule
+from sd_lora_trainer_tpu_torch.utils.utils import kept_on_card
 
 
 def _batch_mean(x: torch.Tensor, group=None) -> torch.Tensor:
@@ -139,9 +140,10 @@ def _keys_cubic(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 2.0, torch.zeros_like(x), out)
 
 
+@kept_on_card
 def _cubic_weight_mat(in_size: int, out_size: int, device) -> torch.Tensor:
     """[in, out] bicubic resize weights, as jax.image compute_weight_mat
-    (antialias on, translation 0), in float32."""
+    (antialias on, translation 0), in float32; built on the host."""
     inv_scale = 1.0 / torch.tensor(out_size / in_size, dtype=torch.float32)
     kernel_scale = torch.clamp(inv_scale, min=1.0)
     sample_f = (torch.arange(out_size, dtype=torch.float32) + 0.5) * inv_scale - 0.5
@@ -167,9 +169,14 @@ def _resize_nearest(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
         m = x.shape[axis]
         if m == n:
             continue
-        idx = torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n).long()
-        x = x.index_select(axis, idx.to(x.device))
+        x = x.index_select(axis, _nearest_rows(m, n, x.device))
     return x
+
+
+@kept_on_card
+def _nearest_rows(m: int, n: int, device) -> torch.Tensor:
+    """The source row of each of n output rows of a nearest resize from m."""
+    return torch.floor((torch.arange(n, dtype=torch.float32) + 0.5) * m / n).long().to(device)
 
 
 def _map_hw(name: str, q_len: int, img_ratio: float) -> Tuple[int, int]:

@@ -21,9 +21,14 @@ Two faults of the JAX loop are not copied: the DAAM image ratio is derived
 per bucket (JAX bakes the base resolution's into every bucket's step), and
 the buffered bucket draws are never evicted (JAX drops the oldest past 64).
 `steps_per_call` groups K steps the way JAX's K-scan call does (the same
-grouped drawing, so the same batches), then runs them one by one: eager
-PyTorch has no compiled call to amortize. There is no prewarm: nothing
-compiles per shape.
+grouped drawing, so the same batches). On the card each step is one CUDA
+graph (training/step.py `make_train_step`), captured per bucket at that
+bucket's second step (its first runs eagerly, a real step, where JAX
+compiles on a throwaway state), so K steps are K replays; the batch goes
+from pinned host memory into the graph's inputs. Multi-process runs and
+the "offload:" plan run eagerly and say so. The summary line gives the
+step's mode, each capture's seconds and the replays' s/step
+(`s_per_replay`: the loop less each shape's eager first step and capture).
 
 With `token_warmup_steps` and a concept description (GPT's, or the
 config's own `training_attributes["gpt_description"]`), the TI rows are
@@ -241,11 +246,12 @@ def _sync(device: torch.device) -> None:
 
 
 def _launches() -> Dict[str, int]:
-    return dict(fa.LAUNCHES)
+    return fa.launch_counts()
 
 
 def _launch_delta(before: Dict[str, int]) -> Dict[str, int]:
-    return {k: fa.LAUNCHES[k] - before[k] for k in fa.LAUNCHES}
+    now = fa.launch_counts()
+    return {k: now[k] - before[k] for k in now}
 
 
 def train(config: TrainingConfig):
@@ -496,16 +502,17 @@ def train(config: TrainingConfig):
         batch["latent_scale"] = np.float32(train_dataset.vae_scaling_factor)
         return batch, step_res
 
-    def to_device(batch):
+    def host_tensors(batch):
         """The latent distribution and masks in the weight dtype (the step
-        runs the UNet in it), ids as int64, the scale as a 0-d float32."""
+        runs the UNet in it), ids as int64, the scale as a 0-d float32, in
+        host memory: pinned for a card, so that the step's copy into its
+        inputs does not wait for the card."""
         out = {}
         for k, v in batch.items():
             t = torch.as_tensor(np.asarray(v))
             if k in ("latent_mean", "latent_logvar", "mask"):
-                out[k] = t.to(device=device, dtype=weight_dtype)
-            else:
-                out[k] = t.to(device)
+                t = t.to(weight_dtype)
+            out[k] = t.pin_memory() if device.type == "cuda" else t
         return out
 
     def current_adapters(tr):
@@ -655,7 +662,7 @@ def train(config: TrainingConfig):
         batch_prep_s += time.perf_counter() - t
         step_fn = step_fn_for(call_res)
         for batch in drawn:
-            metrics = step_fn(state, to_device(batch), frozen)
+            metrics = step_fn(state, host_tensors(batch), frozen)
             for k, v in metrics.items():
                 losses.setdefault(k, []).append(v)
         global_step += call_k
@@ -730,8 +737,17 @@ def train(config: TrainingConfig):
         config.training_attributes["loss_series"] = host_losses
     if is_main:
         config.save_as_json(os.path.join(output_save_dir, "training_args.json"))
+    step_modes = {getattr(fn, "mode", None) for fn in step_fns.values()}
+    # each step shape's eager first step and capture are one-time work;
+    # the loop less them is the replays' time
+    graphs = [g for fn in step_fns.values() for g in getattr(fn, "graphs", {}).values()]
+    replays = n_steps - len(graphs)
+    replay_s = loop_s - sum(g.warmup_s + g.capture_s for g in graphs)
     timings.update({
+        "step_mode": step_modes.pop() if len(step_modes) == 1 else sorted(map(str, step_modes)),
+        "captures": [c for fn in step_fns.values() for c in getattr(fn, "captures", list)()],
         "steps": n_steps, "loop_s": loop_s, "s_per_step": loop_s / max(n_steps, 1),
+        "s_per_replay": replay_s / replays if graphs and replays > 0 else None,
         "batch_prep_s": batch_prep_s,
         "checkpoint_s": ckpt_secs, "render_s": render_secs, "rendered_images": rendered,
         "launches": {"train": train_launches, "render": render_launches},

@@ -14,6 +14,7 @@ from typing import Optional, Tuple
 import torch
 
 from sd_lora_trainer_tpu_torch.models.clip import CLIPTextConfig, clip_text_forward
+from sd_lora_trainer_tpu_torch.utils.utils import kept_on_card
 
 
 def sd15_conditioning(te1_params: dict, input_ids: torch.Tensor, cfg: CLIPTextConfig,
@@ -39,8 +40,12 @@ def sdxl_conditioning(
     o2 = clip_text_forward(te2_params, input_ids_2, cfg2, ti_embeddings=ti_rows_2, dtype=dtype)
     prompt_embeds = torch.cat([o1["penultimate"], o2["penultimate"]], dim=-1)
     b = input_ids_1.shape[0]
-    add_time_ids = torch.tensor(
-        [[1024, 1024, 0, 0, resolution[1], resolution[0]]], dtype=torch.float32,
-        device=prompt_embeds.device,
-    ).repeat(b, 1)
+    add_time_ids = _time_ids(tuple(resolution), prompt_embeds.device).repeat(b, 1)
     return prompt_embeds, o2["pooled"], add_time_ids
+
+
+@kept_on_card
+def _time_ids(resolution: Tuple[int, int], device) -> torch.Tensor:
+    """[1, 6] SDXL time ids for (W, H)."""
+    return torch.tensor([[1024, 1024, 0, 0, resolution[1], resolution[0]]], dtype=torch.float32,
+                        device=device)

@@ -154,7 +154,8 @@ def timestep_embedding(
     """Sinusoidal timestep embedding, fp32 (diffusers semantics with
     downscale_freq_shift=0)."""
     half = dim // 2
-    log_period = torch.log(torch.tensor(max_period, dtype=torch.float32, device=timesteps.device))
+    # a fill on the device, not a host tensor: a captured step copies nothing from the host
+    log_period = torch.log(torch.full((), max_period, dtype=torch.float32, device=timesteps.device))
     freqs = torch.exp(
         -log_period * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half
     )

@@ -282,9 +282,12 @@ def _spatial_transformer(p, x, ctx, cfg: UNetConfig, heads: int, name: str, capt
 
 def _checkpointed(context_fn=None):
     """Wrap for a layer recomputed in the backward (non-reentrant checkpoint);
-    `context_fn` makes a selective policy's contexts."""
+    `context_fn` makes a selective policy's contexts. The UNet draws no
+    random numbers, so no generator state is stashed for the recompute
+    (reading the CUDA generator's state is refused while a step is captured)."""
     kw = {} if context_fn is None else {"context_fn": context_fn}
-    return lambda f: (lambda *args: checkpoint(f, *args, use_reentrant=False, **kw))
+    return lambda f: (lambda *args: checkpoint(f, *args, use_reentrant=False,
+                                               preserve_rng_state=False, **kw))
 
 
 def _named_policy_remat(spec: str, cfg: UNetConfig):

@@ -30,7 +30,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Tuple
+from typing import Dict, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -40,8 +40,15 @@ from sd_lora_trainer_tpu_torch.ops.checkpoint_names import checkpoint_name
 from sd_lora_trainer_tpu_torch.ops.kernels import HEAD_DIM_TILES, FlashArgs, FlashStrides, kernel_lib
 from sd_lora_trainer_tpu_torch.ops.stash8 import dequantize_rowwise, quantize_rowwise
 
-# Kernel launches per wrapper; only a real CUDA launch counts.
+# Kernel launches per wrapper; only a real CUDA launch counts. A launch
+# recorded into a CUDA graph (a captured train step, training/step.py) is
+# made by each replay of the graph, with no Python: the wrapper records
+# beside it an increment of a device counter (`_REPLAYED`), which the
+# replays execute. `launch_counts()` reads both; `RECORDED` counts the
+# launches recorded into graphs.
 LAUNCHES = {"flash_fwd": 0, "flash_bwd": 0}
+RECORDED = {"flash_fwd": 0, "flash_bwd": 0}
+_REPLAYED: Dict[Tuple[str, torch.device], torch.Tensor] = {}
 
 _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 
@@ -49,6 +56,42 @@ _DTYPE_CODES = {torch.bfloat16: 0, torch.float32: 1}
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    for counter in _REPLAYED.values():
+        counter.zero_()
+
+
+def launch_counts() -> Dict[str, int]:
+    """Each kernel's launches: the wrapper's own, and those the replays of
+    captured graphs made (read from the device: a wait for the card)."""
+    counts = dict(LAUNCHES)
+    for (name, _), counter in _REPLAYED.items():
+        counts[name] += int(counter)
+    return counts
+
+
+def prepare_graph_counts(device: torch.device) -> None:
+    """Allocate `device`'s replay counters; before a capture, which must
+    not allocate what outlives it."""
+    for name in LAUNCHES:
+        if (name, device) not in _REPLAYED:
+            _REPLAYED[name, device] = torch.zeros((), dtype=torch.int64, device=device)
+
+
+def _capturing() -> bool:
+    return torch.cuda.is_available() and torch.cuda.is_current_stream_capturing()
+
+
+def count_launch(name: str, device: torch.device) -> None:
+    """Count one launch of kernel `name` on `device`, just made on the current
+    stream: on the host, or, while the stream is captured, on the device."""
+    if _capturing():
+        counter = _REPLAYED.get((name, device))
+        if counter is None:
+            raise RuntimeError(f"{name}: captured before prepare_graph_counts({device})")
+        counter.add_(1)
+        RECORDED[name] += 1
+    else:
+        LAUNCHES[name] += 1
 
 
 def _round_up(x: int, m: int) -> int:
@@ -230,7 +273,7 @@ def _launch(name: str, q, k, v, *, dout=None, out_a, out_b=None, out_c=None, acc
     rc = fn(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     if rc != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {rc}")
-    LAUNCHES[name] += 1
+    count_launch(name, q.device)
 
 
 def _empty_like_heads(x: torch.Tensor) -> torch.Tensor:

@@ -5,12 +5,17 @@
 
 Counterpart of the JAX package's scripts/profile_step.py. It builds the
 bench's run from the same BENCH_* knobs (sd_lora_trainer_tpu_torch/bench.py),
-takes one warm-up step, then traces `--steps` steps with
+takes two warm-up steps (the eager first step and the capture: on the card
+the step is one CUDA graph, training/step.py), then traces `--steps`
+steps, replays of the graph as the trainer runs them (the profiler reports
+the kernels inside a graph), with
 `utils.profiling.trace_steps`, which writes a Chrome trace to
 `DIR/profile/trace.json` (DIR defaults to build/profile_step). It prints the
 device time by kernel family (flash, GEMM, conv, other), the flash kernels
-and the top kernels from the live profiler; the last line of stdout is one
-JSON object with the family totals and the trace's path. `--summarize`
+and the top kernels from the live profiler, and each flash wrapper's
+launches a step, counted and as the trace shows them; the last line of
+stdout is one JSON object with the family totals, those launches and the
+trace's path. `--summarize`
 prints the same table and JSON read from an exported trace (a file, or a
 directory holding profile/trace.json), the counterpart of the JAX
 script's xplane parser.
@@ -75,19 +80,25 @@ def main(argv=None) -> int:
     latent = levers.resolution // 8
     batch = run.batch(latent, latent, np.random.RandomState(0))
     step = make_train_step(run.sc)
-    step(run.state, batch, run.frozen)  # warm-up
+    for _ in range(2):  # the eager first step, then the capture
+        step(run.state, batch, run.frozen)
+    bench.log_step_mode(step)
     profiling.synchronize(levers.device)
-    before = dict(fa.LAUNCHES)
+    before = fa.launch_counts()
     with profiling.trace_steps(args.out) as prof:
         for _ in range(args.steps):
             step(run.state, batch, run.frozen)
-    launches = {k: (fa.LAUNCHES[k] - before[k]) / args.steps for k in fa.LAUNCHES}
+    now = fa.launch_counts()
+    launches = {k: (now[k] - before[k]) / args.steps for k in now}
     live = profiling.device_time_table(profiling.device_kernels(prof))
+    traced = {k: n / args.steps for k, n in live.flash_launches.items()}
     print(f"[profile] {args.steps} traced steps of {levers.model} bs={levers.batch_size} "
-          f"{levers.resolution}px, remat {run.sc.remat!r}; flash launches per step {launches}")
+          f"{levers.resolution}px, remat {run.sc.remat!r}; flash launches per step {launches}, "
+          f"in the trace {traced}")
     for line in live.lines("[profile]"):
         print(line)
     print(json.dumps({"steps": args.steps, "launches_per_step": launches,
+                      "traced_launches_per_step": traced,
                       "trace": trace_path(args.out), "kernels": live.kernels,
                       "device_s": live.device_s, "family_ms": live.family_ms}))
     return 0

@@ -8,8 +8,9 @@ package's `build_unet_optimizer`, `build_ti_optimizer` and
 of its own (so each Prodigy group adapts its own d, as under optax's
 multi_transform):
 
-- AdamW (torch's, b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay: the
-  update optax.adamw computes) at the group's schedule;
+- AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled weight decay: the update
+  optax.adamw computes, written here with foreach ops) at the group's
+  schedule;
 - "prodigy" (UNet or TI): training/prodigy.py at lr 1.0, betas (0.9, 0.99),
   safeguard_warmup, bias correction and decoupled decay, with d_coef =
   prodigy_d_coef and growth_rate = unet_prodigy_growth_factor for the UNet,
@@ -23,11 +24,20 @@ with f = step / max_train_steps:
 - TE LoRA: te_lr * (1 - f)^2 * min(step / warmup, 1)
 - UNet:    base_lr * (unet_lr / base_lr)^(step / warmup_steps), frozen
            while f < freeze_unet_before_completion_f
+
+Each schedule is tensor ops on a float64 0-d step count: the update
+evaluates it at a device count, `current_lrs` (the debug LR history) at a
+Python step, on the CPU. Nothing an update reads changes as a Python value
+from step to step, so a captured step (training/step.py) replays it: an optimizer
+keeps its update count on the host (`count`, the mirror that resume and
+export read) and in a device tensor that `sync` fills from it before each
+update. `update` is the device work alone, `advance` moves the host count,
+and `step` is the three in order.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Union
 
 import torch
 
@@ -43,40 +53,55 @@ def base_unet_lr(config: TrainingConfig) -> float:
     return 2.0e-4 if config.disable_ti else 5.0e-5
 
 
-def ti_lr_schedule(config: TrainingConfig) -> Callable[[int], float]:
-    def schedule(step: int) -> float:
-        f = min(step / config.max_train_steps, 1.0)
-        if f > config.freeze_ti_after_completion_f:
-            return 0.0
-        return config.ti_lr * (1.0 - f) ** 1.7
+Schedule = Callable[[Union[int, torch.Tensor]], Union[float, torch.Tensor]]
+
+
+def _schedule(fn: Callable[[torch.Tensor], torch.Tensor]) -> Schedule:
+    """`fn` of a float64 0-d step count; a Python step gets a float."""
+
+    def schedule(step):
+        if isinstance(step, torch.Tensor):
+            return fn(step)
+        return float(fn(torch.tensor(step, dtype=torch.float64)))
 
     return schedule
 
 
-def te_lora_lr_schedule(config: TrainingConfig) -> Callable[[int], float]:
+def _fraction(config: TrainingConfig, step: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(step / config.max_train_steps, max=1.0)
+
+
+def ti_lr_schedule(config: TrainingConfig) -> Schedule:
+    def schedule(step):
+        f = _fraction(config, step)
+        return torch.where(f > config.freeze_ti_after_completion_f, 0.0,
+                           config.ti_lr * (1.0 - f) ** 1.7)
+
+    return _schedule(schedule)
+
+
+def te_lora_lr_schedule(config: TrainingConfig) -> Schedule:
     warmup = config.txt_encoders_lr_warmup_steps
 
-    def schedule(step: int) -> float:
-        f = min(step / config.max_train_steps, 1.0)
-        lr = config.text_encoder_lora_lr * (1.0 - f) ** 2.0
-        if warmup > 0:
-            lr *= min(step / warmup, 1.0)
-        return lr
+    def schedule(step):
+        lr = config.text_encoder_lora_lr * (1.0 - _fraction(config, step)) ** 2.0
+        return lr * torch.clamp(step / warmup, max=1.0) if warmup > 0 else lr
 
-    return schedule
+    return _schedule(schedule)
 
 
-def unet_lr_schedule(config: TrainingConfig) -> Callable[[int], float]:
+def unet_lr_schedule(config: TrainingConfig) -> Schedule:
     base = base_unet_lr(config)
     warmup = max(config.unet_lr_warmup_steps or config.max_train_steps, 1)
 
-    def schedule(step: int) -> float:
-        f = min(step / config.max_train_steps, 1.0)
-        if f < config.freeze_unet_before_completion_f:
-            return 0.0
-        return base * (config.unet_lr / base) ** (step / warmup)
+    def schedule(step):
+        return torch.where(_fraction(config, step) < config.freeze_unet_before_completion_f, 0.0,
+                           base * (config.unet_lr / base) ** (step / warmup))
 
-    return schedule
+    return _schedule(schedule)
+
+
+_SCHEDULES = {"unet": unet_lr_schedule, "ti": ti_lr_schedule, "te_lora": te_lora_lr_schedule}
 
 
 def group_tensors(tree) -> List[torch.Tensor]:
@@ -91,32 +116,81 @@ def group_tensors(tree) -> List[torch.Tensor]:
 
 
 class AdamW:
-    """torch's AdamW over one group, at the LR `step` is given."""
+    """optax.adamw over one group at the LR `update` is given: the moments
+    in each tensor's dtype, the bias corrections from a device count, a
+    missing grad read as 0. The state keeps torch AdamW's keys ("step",
+    "exp_avg", "exp_avg_sq" per tensor), so train states written before
+    load."""
 
     kind = "adamw"
 
-    def __init__(self, params: List[torch.Tensor], weight_decay: float):
+    def __init__(self, params: List[torch.Tensor], weight_decay: float, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
         self.params = list(params)
-        self.opt = torch.optim.AdamW(self.params, lr=0.0, betas=(0.9, 0.999), eps=1e-8,
-                                     weight_decay=weight_decay)
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, weight_decay
+        with torch.no_grad():
+            self.exp_avg = [torch.zeros_like(p) for p in self.params]
+            self.exp_avg_sq = [torch.zeros_like(p) for p in self.params]
+        self.count = 0
+        self._count_t = torch.zeros((), dtype=torch.float32, device=self.params[0].device)
 
-    def step(self, lr: float) -> None:
-        self.opt.param_groups[0]["lr"] = lr
-        self.opt.step()
+    def sync(self) -> None:
+        self._count_t.fill_(self.count)
+
+    def bias_corrections(self):
+        """(1 - b1^n, 1 - b2^n) for this update's n, float32 0-d on the device."""
+        count = self._count_t + 1.0
+        return 1.0 - self.b1**count, 1.0 - self.b2**count
+
+    @torch.no_grad()
+    def update(self, lr) -> None:
+        """p <- p - lr * ((m / bc1) / (sqrt(v / bc2) + eps) + wd * p) in 9
+        passes over the tensors (torch's capturable AdamW's): the decay as
+        one scaling of p, and the step size -lr / bc1 folded into the
+        denominator, since addcdiv takes no device scalar (at lr 0 the
+        denominator is infinite and p keeps its value). The device scalars
+        take the tensors' dtype: a scalar of another dtype sends a foreach
+        op down its one-kernel-a-tensor path (scripts/update_time.py times
+        both)."""
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in self.params]
+        bc1, bc2 = self.bias_corrections()
+        dtype = self.params[0].dtype
+        torch._foreach_lerp_(self.exp_avg, grads, 1.0 - self.b1)
+        torch._foreach_mul_(self.exp_avg_sq, self.b2)
+        torch._foreach_addcmul_(self.exp_avg_sq, grads, grads, value=1.0 - self.b2)
+        denom = torch._foreach_sqrt(self.exp_avg_sq)
+        torch._foreach_div_(denom, torch.sqrt(bc2).to(dtype))
+        torch._foreach_add_(denom, self.eps)
+        torch._foreach_div_(denom, (-lr / bc1).to(dtype))
+        if self.weight_decay:
+            torch._foreach_mul_(self.params, (1.0 - lr * self.weight_decay).to(dtype))
+        torch._foreach_addcdiv_(self.params, self.exp_avg, denom)
+
+    def advance(self) -> None:
+        self.count += 1
+
+    def step(self, lr) -> None:
+        self.sync()
+        self.update(lr)
+        self.advance()
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
-        return {f"{k}.{i:05d}": v for i, p in enumerate(self.params)
-                for k, v in self.opt.state.get(p, {}).items()}
+        step = torch.tensor(float(self.count), dtype=torch.float32)
+        out = {}
+        for i in range(len(self.params)):
+            out[f"step.{i:05d}"] = step
+            out[f"exp_avg.{i:05d}"] = self.exp_avg[i]
+            out[f"exp_avg_sq.{i:05d}"] = self.exp_avg_sq[i]
+        return out
 
+    @torch.no_grad()
     def load_state_tensors(self, sd: Dict[str, torch.Tensor]) -> None:
-        entries: Dict[int, Dict[str, torch.Tensor]] = {}
         for k, v in sd.items():
             key, _, i = k.rpartition(".")
-            entries.setdefault(int(i), {})[key] = v
-        for i, entry in entries.items():
-            p = self.params[i]
-            # the 0-d step count stays on the CPU unless AdamW is fused
-            self.opt.state[p] = {k: v if v.ndim == 0 else v.to(p.device) for k, v in entry.items()}
+            if key == "step":
+                self.count = int(v)
+            else:
+                getattr(self, key)[int(i)].copy_(v)
 
 
 def build_group_optimizer(config: TrainingConfig, name: str, params: List[torch.Tensor],
@@ -146,20 +220,17 @@ class GroupOptimizer:
     `totals` maps a sharded group to its sum over the ranks (fsdp)."""
 
     def __init__(self, config: TrainingConfig, trainable: dict, totals: Optional[dict] = None):
-        schedules = {
-            "unet": unet_lr_schedule(config),
-            "ti": ti_lr_schedule(config),
-            "te_lora": te_lora_lr_schedule(config),
-        }
         self.groups: Dict[str, object] = {}
-        self.schedules: Dict[str, Callable[[int], float]] = {}
+        self.schedules: Dict[str, Schedule] = {}
         for name in ("unet", "ti", "te_lora"):
             if name not in trainable:
                 continue
-            self.schedules[name] = schedules[name]
+            self.schedules[name] = _SCHEDULES[name](config)
             self.groups[name] = build_group_optimizer(config, name, group_tensors(trainable[name]),
                                                       (totals or {}).get(name))
         self.count = 0
+        device = self.params()[0].device if self.groups else "cpu"
+        self._count_t = torch.zeros((), dtype=torch.float64, device=device)
 
     def params(self) -> List[torch.Tensor]:
         """Every trainable tensor, group by group."""
@@ -168,12 +239,36 @@ class GroupOptimizer:
     def kinds(self) -> Dict[str, str]:
         return {name: opt.kind for name, opt in self.groups.items()}
 
-    def step(self) -> None:
-        """Apply one update from the tensors' .grad at the scheduled LRs
-        (a Prodigy group runs at its fixed LR of 1)."""
+    def sync(self) -> None:
+        """Fill the device counts from their host mirrors (fill kernels:
+        no host wait). Runs before each update, outside a captured step."""
+        self._count_t.fill_(self.count)
+        for opt in self.groups.values():
+            opt.sync()
+
+    def device_lrs(self) -> Dict[str, torch.Tensor]:
+        """Each scheduled group's LR at the device count, float32 0-d."""
+        return {name: self.schedules[name](self._count_t).float()
+                for name, opt in self.groups.items() if not isinstance(opt, Prodigy)}
+
+    def update(self) -> None:
+        """One update of every group from the tensors' .grad at the device
+        LRs (a Prodigy group runs at its fixed LR of 1): device work only."""
+        lrs = self.device_lrs()
         for name, opt in self.groups.items():
-            opt.step(None if isinstance(opt, Prodigy) else self.schedules[name](self.count))
+            opt.update(lrs.get(name))
+
+    def advance(self) -> None:
+        """Count the update on the host."""
         self.count += 1
+        for opt in self.groups.values():
+            opt.advance()
+
+    def step(self) -> None:
+        """Apply one update at the scheduled LRs and count it."""
+        self.sync()
+        self.update()
+        self.advance()
 
     def zero_grad(self) -> None:
         for p in self.params():

@@ -5,8 +5,9 @@ update rule with its four knobs (d_coef, growth_rate, safeguard_warmup,
 decouple) and bias correction, in the JAX package's order of operations.
 The state is fp32 `exp_avg`, `exp_avg_sq`, `s` and `p0` (the tensors'
 initial values) per tensor, and four 0-d tensors on the group's device:
-`d`, `d_max`, `d_numerator` and `count`. Every scalar stays on the device,
-so a step never waits for it.
+`d`, `d_max`, `d_numerator` and `count`. Every scalar stays on the device
+and is updated in place, so a step never waits for it and a captured step
+(training/step.py) replays it.
 
 One instance serves one group: JAX's `optax.multi_transform` gives the UNet
 group and the TI group a `d` each, which one Prodigy over several torch
@@ -70,8 +71,14 @@ class Prodigy:
         k1 = self.count.float() + 1.0
         return torch.sqrt(1.0 - self.beta2**k1) / (1.0 - self.beta1**k1)
 
+    def sync(self) -> None:
+        """Nothing to fill: the count is a device tensor only."""
+
+    def advance(self) -> None:
+        """Nothing to count on the host."""
+
     @torch.no_grad()
-    def step(self, lr: Optional[float] = None) -> None:
+    def update(self, lr: Optional[float] = None) -> None:
         """One update of every tensor from its .grad (a missing grad is 0)."""
         lr = self.lr if lr is None else lr
         b1, b2, b3 = self.beta1, self.beta2, self.beta3
@@ -108,7 +115,9 @@ class Prodigy:
 
         # the step takes dlr from the old d and the eps guard from the new d
         denom = torch._foreach_sqrt(self.exp_avg_sq)
-        torch._foreach_add_(denom, d_new * self.eps)
+        # a list of 0-d tensors, not one: a tensor second operand of
+        # _foreach_add_ is read on the host on the CPU (and when traced)
+        torch._foreach_add_(denom, [d_new * self.eps] * len(denom))
         updates = torch._foreach_mul(self.exp_avg, -dlr)
         torch._foreach_div_(updates, denom)
         if self.decouple and self.weight_decay > 0.0:
@@ -116,8 +125,12 @@ class Prodigy:
         for p, u in zip(self.params, updates):
             p.add_(u.to(p.dtype))
 
-        self.d, self.d_max, self.d_numerator = d_new, d_max, d_numerator
-        self.count = self.count + 1
+        self.d.copy_(d_new)
+        self.d_max.copy_(d_max)
+        self.d_numerator.copy_(d_numerator)
+        self.count.add_(1)
+
+    step = update
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
         out = {"d": self.d, "d_max": self.d_max, "d_numerator": self.d_numerator,
@@ -129,9 +142,8 @@ class Prodigy:
 
     @torch.no_grad()
     def load_state_tensors(self, sd: Dict[str, torch.Tensor]) -> None:
-        device = self.d.device
         for name in ("d", "d_max", "d_numerator", "count"):
-            setattr(self, name, sd[name].to(device=device, dtype=getattr(self, name).dtype))
+            getattr(self, name).copy_(sd[name])
         for name in ("exp_avg", "exp_avg_sq", "s", "p0"):
             for i, t in enumerate(getattr(self, name)):
                 t.copy_(sd[f"{name}.{i:05d}"])

@@ -15,6 +15,11 @@ padded tensors of one dtype and device are laid out one after another in
 flat buffers of about BUCKET elements (a larger tensor gets one of its own),
 so a step is a few dozen large ops per buffer. The blocks are the same as
 the per-tensor layout's, so the results are too, bit for bit.
+
+The update count lives on the host (`count`, saved in the state) and in a
+device tensor that `sync` fills from it, so the bias corrections are
+device values and a captured update replays (training/optimizers.py);
+the moments are updated in place.
 """
 
 from __future__ import annotations
@@ -148,13 +153,22 @@ class AdamW8bit:
         self._where = {i: (bk, j) for bk in self.buckets for j, i in enumerate(bk.indices)}
         device = self.params[0].device
         self._smap, self._umap = _SMAP.to(device), _UMAP.to(device)
+        self._count_t = torch.zeros((), dtype=torch.float32, device=device)
+
+    def sync(self) -> None:
+        self._count_t.fill_(self.count)
+
+    def bias_corrections(self):
+        """(1 - b1^n, 1 - b2^n) for this update's n, in fp32 as the JAX
+        package has them, 0-d on the device."""
+        count = self._count_t + 1.0
+        return 1.0 - self.b1**count, 1.0 - self.b2**count
 
     @torch.no_grad()
-    def step(self, lr: float) -> None:
-        """One update of every tensor from its .grad (a missing grad is 0)."""
-        count = torch.tensor(self.count + 1, dtype=torch.float32)
-        bc1 = float(1.0 - self.b1**count)  # in fp32, as the JAX package has them
-        bc2 = float(1.0 - self.b2**count)
+    def update(self, lr) -> None:
+        """One update of every tensor from its .grad (a missing grad is 0)
+        at `lr` (a float, or a 0-d device tensor): device work only."""
+        bc1, bc2 = self.bias_corrections()
         b1, b2 = self.b1, self.b2
         for bk in self.buckets:
             params = [self.params[j] for j in bk.indices]
@@ -163,7 +177,9 @@ class AdamW8bit:
             g = torch.zeros(n, dtype=torch.float32, device=device)
             with_grad = [i for i, p in enumerate(params) if p.grad is not None]
             views = bk.views(g, params)
-            torch._foreach_copy_([views[i] for i in with_grad], [params[i].grad for i in with_grad])
+            if with_grad:
+                torch._foreach_copy_([views[i] for i in with_grad],
+                                     [params[i].grad for i in with_grad])
             g = g.view(-1, BLOCK)
             m = b1 * _dequantize_blocks(bk.mu_q, bk.mu_scale, self._smap) + (1 - b1) * g
             v = b2 * _dequantize_blocks(bk.nu_q, bk.nu_scale, self._umap) + (1 - b2) * g * g
@@ -175,11 +191,21 @@ class AdamW8bit:
                 update += self.weight_decay * p32.view(-1, BLOCK)
                 del p32
             update = (-lr * update).to(params[0].dtype).reshape(-1)
-            bk.mu_q, bk.mu_scale = _quantize_blocks(m, self._smap)
-            bk.nu_q, bk.nu_scale = _quantize_blocks(v, self._umap)
+            for q, scale, (new_q, new_scale) in (
+                    (bk.mu_q, bk.mu_scale, _quantize_blocks(m, self._smap)),
+                    (bk.nu_q, bk.nu_scale, _quantize_blocks(v, self._umap))):
+                q.copy_(new_q)
+                scale.copy_(new_scale)
             del m, v
             torch._foreach_add_(params, bk.views(update, params))
+
+    def advance(self) -> None:
         self.count += 1
+
+    def step(self, lr) -> None:
+        self.sync()
+        self.update(lr)
+        self.advance()
 
     def moments(self, i: int) -> Dict[str, torch.Tensor]:
         """Tensor i's quantized moments: views of its rows of the flat buffers."""

@@ -19,13 +19,22 @@ update per group.
   takes the global batch and keeps this rank's rows; every rank draws the
   global batch's noise from the same generator and keeps its rows, so the
   streams are those of one process; the losses' batch-level statistics are
-  the data group's; the gradients are synced before the update.
+  the data group's; the gradients are synced before the update;
+- one program (`make_train_step`): on the card the whole step, every
+  micro-batch's forward and backward, the metrics and the three-group
+  update, is one CUDA graph, captured once per step shape and replayed for
+  every step, the counterpart of JAX's jitted step. Nothing the step reads
+  changes as a Python value from step to step: the step count, the update
+  counts, the LRs and the TI freeze are device tensors.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
-from typing import Any, Dict, List, Optional, Tuple, Union
+import sys
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -44,6 +53,7 @@ from sd_lora_trainer_tpu_torch.models.clip import CLIPTextConfig
 from sd_lora_trainer_tpu_torch.models.conditioning import sd15_conditioning, sdxl_conditioning
 from sd_lora_trainer_tpu_torch.models.lora import inject_lora, iter_lora_leaves
 from sd_lora_trainer_tpu_torch.models.unet import UNetConfig, unet_forward
+from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
 from sd_lora_trainer_tpu_torch.parallel.distributed import local_rows
 from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer, group_tensors
 
@@ -168,14 +178,16 @@ def compute_loss(
     frozen: FrozenModels,
     sc: StepConfig,
     batch: Dict[str, torch.Tensor],
-    step: int,
+    step: Union[int, torch.Tensor],
     generator: Optional[torch.Generator] = None,
     latent_eps: Optional[torch.Tensor] = None,
     noise: Optional[torch.Tensor] = None,
     offset_noise: Optional[torch.Tensor] = None,
     timesteps: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """One micro-batch loss with every reference term.
+    """One micro-batch loss with every reference term. `step` is the number
+    of steps done, a Python int or a 0-d device tensor (what a captured step
+    reads).
 
     Under `sc.parallel` the batch is this rank's rows; draws are made (or
     given) in the global batch's shape and this rank's rows kept."""
@@ -221,7 +233,8 @@ def compute_loss(
     if sc.remat_te:
         # int8 text encoders: recomputing the conditioning keeps only the
         # codes and its [B, 77, *] outputs alive, not the dequantized weights
-        prompt_embeds, pooled, add_time_ids = checkpoint(conditioning, use_reentrant=False)
+        prompt_embeds, pooled, add_time_ids = checkpoint(conditioning, use_reentrant=False,
+                                                         preserve_rng_state=False)
     else:
         prompt_embeds, pooled, add_time_ids = conditioning()
     added_cond = ({"text_embeds": pooled, "time_ids": add_time_ids}
@@ -271,12 +284,12 @@ def compute_loss(
         aux["l1_norm"] = l1
 
     if sc.train_ti:
-        ti_active = 0.0 if step / sc.max_train_steps > sc.ti_freeze_f else 1.0
+        active = ti_active(sc, step)
         if sc.cond_reg_w > 0.0:
             reg, observed = prompt_norm_regularization(
                 prompt_embeds, TARGET_PROMPT_NORM[frozen.version], group=group
             )
-            loss = loss + ti_active * sc.cond_reg_w * reg
+            loss = loss + active * sc.cond_reg_w * reg
             aux["prompt_norm"] = observed
         cov_losses, std_losses = [], []
         for which, rows in ti.items():
@@ -289,42 +302,257 @@ def compute_loss(
                 std_losses.append(targets.std_loss(rows))
         if cov_losses:
             cov = torch.stack(cov_losses).mean()
-            loss = loss + ti_active * sc.tok_cov_reg_w * cov
+            loss = loss + active * sc.tok_cov_reg_w * cov
             aux["covariance_tok_reg_loss"] = cov
         if std_losses:
             stdl = torch.stack(std_losses).mean()
-            loss = loss + ti_active * sc.std_loss_w * stdl
+            loss = loss + active * sc.std_loss_w * stdl
             aux["token_std_loss"] = stdl
 
     aux["tot_loss"] = loss
     return loss, aux
 
 
-def make_train_step(sc: StepConfig):
+def ti_active(sc: StepConfig, step: Union[int, torch.Tensor]) -> Union[float, torch.Tensor]:
+    """1 while the TI regularizers apply, 0 once step / max_train_steps
+    passes the TI freeze: a float for a Python step, a float32 0-d tensor
+    (computed in float64, as the float) for a device step."""
+    if isinstance(step, torch.Tensor):
+        return (step.double() / sc.max_train_steps <= sc.ti_freeze_f).float()
+    return 0.0 if step / sc.max_train_steps > sc.ti_freeze_f else 1.0
+
+
+def make_train_step(sc: StepConfig, capture: bool = True, backend=None) -> "TrainStep":
     """Build `train_step(state, batch, frozen, draws=None) -> metrics`.
 
-    `batch` tensors carry a leading [accum] dim (0-dim tensors ride through);
-    `draws` optionally holds one dict of explicit compute_loss draws per
-    micro-batch. The step averages loss and gradients over the micro-batches,
-    applies one optimizer update in place and advances `state.step`. Under
-    `sc.parallel` the batch and draws are the global batch's.
-    """
+    `batch` tensors carry a leading [accum] dim (0-dim tensors ride through)
+    and lie on the device or in host memory (pinned, for an asynchronous
+    copy); `draws` optionally holds one dict of explicit compute_loss draws
+    per micro-batch (an eager step's). The step averages loss and gradients
+    over the micro-batches, applies one optimizer update in place and
+    advances `state.step`. Under `sc.parallel` the batch and draws are the
+    global batch's.
 
-    def train_step(state: TrainState, batch: Dict[str, torch.Tensor], frozen: FrozenModels,
-                   draws: Optional[List[dict]] = None) -> Dict[str, torch.Tensor]:
-        metrics = accumulate_grads(sc, state, batch, frozen, draws)
-        state.optimizer.step()
-        state.step += 1
+    The step runs as a captured graph where it can (one process on the
+    card, every plan but "offload:") and eagerly elsewhere, saying why on
+    stderr; `capture=False` runs it eagerly (to compare the two: no config
+    field, JAX has no such knob). `backend` stands in for CUDA graphs
+    (`CudaGraphs`), as the tests do on the CPU.
+    """
+    return TrainStep(sc, capture, backend or CudaGraphs())
+
+
+def _step_body(sc: StepConfig, state: TrainState, batch: Dict[str, torch.Tensor],
+               frozen: FrozenModels, step: torch.Tensor,
+               draws: Optional[List[dict]] = None) -> Dict[str, torch.Tensor]:
+    """The step as a graph holds it: the gradients, the metrics and the
+    update, reading the step count from `step`; it moves no host count."""
+    metrics = accumulate_grads(sc, state, batch, frozen, draws, step=step)
+    state.optimizer.update()
+    return metrics
+
+
+def _count_step(state: TrainState) -> None:
+    """The host's side of a step: its count and the optimizers' counts."""
+    state.step += 1
+    state.optimizer.advance()
+
+
+class CudaGraphs:
+    """Captures a step into a `torch.cuda.CUDAGraph`.
+
+    The graphs of one device share a memory pool and a capture stream, so
+    one graph per aspect-ratio bucket costs the device the largest step's
+    memory, not the sum. That is safe in any replay order because each
+    graph is a whole step: its outputs are cloned right after its replay,
+    the gradients it leaves are dropped after its capture, and every state
+    it carries from one step to the next (trainables, optimizer state,
+    counts, static inputs) was allocated outside any capture, so no other
+    graph's memory can overlap it."""
+
+    _pools: Dict[torch.device, tuple] = {}
+
+    def supports(self, device: torch.device) -> bool:
+        return device.type == "cuda"
+
+    def _pool(self, device: torch.device):
+        device = torch.device("cuda", device.index if device.index is not None
+                              else torch.cuda.current_device())
+        if device not in self._pools:
+            self._pools[device] = (torch.cuda.graph_pool_handle(), torch.cuda.Stream(device))
+        return self._pools[device]
+
+    @contextlib.contextmanager
+    def warmup(self, device: torch.device):
+        """Run a key's first, eager step on the capture stream, to its end."""
+        _, stream = self._pool(device)
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            yield
+        stream.synchronize()
+        torch.cuda.current_stream(device).wait_stream(stream)
+
+    def capture(self, body: Callable[[], dict], generator: torch.Generator,
+                device: torch.device):
+        """Record the step without running it; returns `replay`, which runs
+        it and returns the same output tensors each time."""
+        pool, stream = self._pool(device)
+        graph = torch.cuda.CUDAGraph()
+        # the step's draws: each replay takes the generator's next offsets,
+        # as an eager step would
+        graph.register_generator_state(generator)
+        with torch.cuda.device(device), torch.cuda.graph(graph, pool=pool, stream=stream):
+            outputs = body()
+
+        def replay():
+            graph.replay()
+            return outputs
+
+        return replay
+
+    def reserved_gib(self, device: torch.device) -> float:
+        """The device memory the allocator holds, its unused cache first
+        released (as a capture does on entry): around a capture, its pool."""
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        return torch.cuda.memory_reserved(device) / 2**30
+
+
+@dataclasses.dataclass
+class _Graph:
+    """One key's capture: the state and frozen models it reads and updates,
+    its static inputs and step count, and what one replay launches."""
+
+    state: TrainState
+    frozen: FrozenModels
+    inputs: Optional[Dict[str, torch.Tensor]] = None
+    step: Optional[torch.Tensor] = None
+    replay: Optional[Callable[[], dict]] = None
+    launches: Optional[Dict[str, int]] = None
+    warmup_s: float = 0.0
+    capture_s: float = 0.0
+    pool_gib: float = 0.0
+
+
+class TrainStep:
+    """The train step of `make_train_step`.
+
+    `mode` ("graph" or "eager") is set at the first call, with
+    `eager_reason`. In graph mode `graphs` holds one capture per key: the
+    state and frozen models, and the batch's shapes and dtypes (one graph
+    per bucket; the DAAM ratio and the accumulation count are fixed per step
+    function, as they are per jitted function in JAX). A key's first step
+    runs eagerly, a real step, on the capture stream: the kernels' builds,
+    cuBLAS's workspaces and the cached constants are made outside the
+    capture. Its second step is captured, then replayed, and so is every
+    later one: the batch is copied into the static inputs, the host fills
+    the step count and the optimizers' counts, the graph runs, its metrics
+    are cloned on the device, and the host counts the step (each replay
+    counts its flash launches on the device, ops/flash_attention.py). A
+    failed capture or replay raises: there is no fallback to eager."""
+
+    def __init__(self, sc: StepConfig, capture: bool, backend):
+        self.sc, self.capture, self.backend = sc, capture, backend
+        self.mode: Optional[str] = None
+        self.eager_reason: Optional[str] = None
+        self.graphs: Dict[tuple, _Graph] = {}
+        self._step_t: Optional[torch.Tensor] = None
+
+    def _choose_mode(self, device: torch.device) -> None:
+        reason = None
+        if not self.capture:
+            reason = "asked by the caller"
+        elif not self.backend.supports(device):
+            reason = f"the step runs on {device.type} (CUDA graphs need a card)"
+        elif self.sc.parallel is not None:
+            reason = "a multi-process step (its collectives are not captured)"
+        elif isinstance(self.sc.remat, str) and "offload:" in self.sc.remat:
+            reason = "the offload: plan (its host copies run on a side stream)"
+        self.mode, self.eager_reason = ("eager", reason) if reason else ("graph", None)
+        if reason is not None and self.capture:
+            print(f"[step] eager: {reason}", file=sys.stderr, flush=True)
+
+    def __call__(self, state: TrainState, batch: Dict[str, torch.Tensor], frozen: FrozenModels,
+                 draws: Optional[List[dict]] = None) -> Dict[str, torch.Tensor]:
+        device = state.optimizer.params()[0].device
+        if self.mode is None:
+            self._choose_mode(device)
+        if self.mode == "eager":
+            return self._eager(state, batch, frozen, draws, device)
+        if draws is not None:
+            raise ValueError("explicit draws need the eager step: make_train_step(sc, capture=False)")
+        key = (id(state), id(frozen)) + tuple(
+            (k, tuple(v.shape), v.dtype) for k, v in sorted(batch.items()))
+        graph = self.graphs.get(key)
+        if graph is None:
+            graph = self.graphs[key] = _Graph(state, frozen)
+            t0 = time.perf_counter()
+            with self.backend.warmup(device):
+                metrics = self._eager(state, batch, frozen, None, device)
+            graph.warmup_s = time.perf_counter() - t0
+            return metrics
+        if graph.replay is None:
+            self._capture(graph, batch, device)
+        self._fill(graph, batch)
+        outputs = graph.replay()
+        _count_step(state)
+        return {k: v.clone() for k, v in outputs.items()}
+
+    def _eager(self, state, batch, frozen, draws, device) -> Dict[str, torch.Tensor]:
+        batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
+        if self._step_t is None or self._step_t.device != device:
+            self._step_t = torch.zeros((), dtype=torch.int64, device=device)
+        self._step_t.fill_(state.step)
+        state.optimizer.sync()
+        metrics = _step_body(self.sc, state, batch, frozen, self._step_t, draws)
+        _count_step(state)
         return metrics
 
-    return train_step
+    def _fill(self, graph: _Graph, batch: Dict[str, torch.Tensor]) -> None:
+        """The host's writes before a replay: the batch, the step count and
+        the optimizers' counts (copies and fills queued on the stream)."""
+        for k, v in batch.items():
+            graph.inputs[k].copy_(v, non_blocking=True)
+        graph.step.fill_(graph.state.step)
+        graph.state.optimizer.sync()
+
+    def _capture(self, graph: _Graph, batch: Dict[str, torch.Tensor], device) -> None:
+        state = graph.state
+        graph.inputs = {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                        for k, v in batch.items()}
+        graph.step = torch.zeros((), dtype=torch.int64, device=device)
+        self._fill(graph, batch)
+        state.optimizer.zero_grad()  # the graph allocates the gradients
+        reserved = self.backend.reserved_gib(device)
+        fa.prepare_graph_counts(device)
+        before = dict(fa.RECORDED)
+        t0 = time.perf_counter()
+        graph.replay = self.backend.capture(
+            lambda: _step_body(self.sc, state, graph.inputs, graph.frozen, graph.step),
+            state.generator, device)
+        graph.capture_s = time.perf_counter() - t0
+        graph.pool_gib = self.backend.reserved_gib(device) - reserved
+        graph.launches = {k: fa.RECORDED[k] - before[k] for k in fa.RECORDED}
+        state.optimizer.zero_grad()  # the graph's pool holds them; nothing reads them
+        shapes = ", ".join(f"{k} {list(v.shape)}" for k, v in batch.items()
+                           if k in ("latent_mean", "input_ids"))
+        print(f"[step] graph: captured the step of {shapes} in {graph.capture_s:.2f} s "
+              f"(+{graph.pool_gib:.2f} GiB reserved, flash launches a replay {graph.launches})",
+              file=sys.stderr, flush=True)
+
+    def captures(self) -> List[dict]:
+        """Each captured key's seconds of its eager first step and of its
+        capture, the pool's growth and the launches of a replay."""
+        return [{"warmup_s": g.warmup_s, "capture_s": g.capture_s, "pool_gib": g.pool_gib,
+                 "launches": g.launches} for g in self.graphs.values() if g.replay is not None]
 
 
 def accumulate_grads(sc: StepConfig, state: TrainState, batch: Dict[str, torch.Tensor],
-                     frozen: FrozenModels, draws: Optional[List[dict]] = None
-                     ) -> Dict[str, torch.Tensor]:
+                     frozen: FrozenModels, draws: Optional[List[dict]] = None,
+                     step: Union[int, torch.Tensor, None] = None) -> Dict[str, torch.Tensor]:
     """The step up to the update: the trainables' .grad from every
-    micro-batch (synced across the mesh), and the step's metrics."""
+    micro-batch (synced across the mesh), and the step's metrics. `step`
+    (default `state.step`) is what compute_loss reads."""
     par = sc.parallel
     if par is not None:  # this rank's rows of the [accum, B, ...] global batch
         batch = local_rows(batch, par.n_data, par.mesh.data_rank)
@@ -333,7 +561,8 @@ def accumulate_grads(sc: StepConfig, state: TrainState, batch: Dict[str, torch.T
     for i in range(sc.grad_accum):
         mb = {k: (v[i] if v.ndim > 0 else v) for k, v in batch.items()}
         loss, aux = compute_loss(
-            state.trainable, frozen, sc, mb, state.step, state.generator,
+            state.trainable, frozen, sc, mb, state.step if step is None else step,
+            state.generator,
             **(draws[i] if draws else {}),
         )
         (loss / sc.grad_accum).backward()
@@ -353,7 +582,8 @@ def accumulate_grads(sc: StepConfig, state: TrainState, batch: Dict[str, torch.T
 
 def run_steps(train_step, state: TrainState, batches, frozen: FrozenModels,
               steps_per_call: int) -> List[Dict[str, torch.Tensor]]:
-    """The host loop of one `steps_per_call` group: K steps over K batches."""
+    """One `steps_per_call` group: K steps over K batches (on the card, K
+    replays of the captured step: the counterpart of JAX's K-step scan)."""
     metrics = []
     for _, batch in zip(range(steps_per_call), batches):
         metrics.append(train_step(state, batch, frozen))

@@ -8,7 +8,9 @@
 - `device_kernels` and `trace_kernels`: the device kernels of a profiler run,
   from the live profiler or from an exported trace, and
   `device_time_table`, their time by kernel family (flash, GEMM, conv,
-  other), the flash kernels one by one, and the top kernels;
+  other), the flash kernels one by one, the top kernels, and the launches
+  of each flash wrapper as the device saw them (a replayed CUDA graph's
+  too);
 - `count_step_flops`: the model FLOPs of one step's forward and backward,
   counted by `FlopCounterMode` (the flash ops carry their formulas,
   ops/flash_attention.py);
@@ -46,6 +48,9 @@ FAMILY_WORDS = {
     "conv": ("conv", "fprop", "dgrad", "wgrad", "implicit", "winograd", "cudnn"),
     "gemm": ("gemm", "nvjet", "xmma", "cutlass", "matmul"),
 }
+# the word in a kernel's name that makes it one launch of a flash wrapper
+# (ops/flash_attention.py); flash_bwd's dQ conversion rides on its launch
+WRAPPER_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd": "flash_bwd_kernel"}
 # the Chrome trace's categories of device work (kernels, copies, fills)
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
 
@@ -163,6 +168,7 @@ class DeviceTimeTable:
     family_ms: Dict[str, float]
     flash_ms: Dict[str, float]  # each flash-family kernel
     top_ms: List[Tuple[str, float]]  # the longest kernels, by total time
+    flash_launches: Dict[str, int]  # kernels a flash wrapper launches, by wrapper
 
     def lines(self, prefix: str = "[profile]") -> List[str]:
         return [
@@ -181,9 +187,11 @@ def device_time_table(kernels: List[Kernel], top: int = 8) -> DeviceTimeTable:
         families[kernel_family(name)] += us / 1e3
     flash = {name: us / 1e3 for name, us, _ in kernels if kernel_family(name) == "flash"}
     top_ms = [(name, us / 1e3) for name, us, _ in sorted(kernels, key=lambda k: -k[1])[:top]]
+    launches = {w: sum(n for name, _, n in kernels if word in name)
+                for w, word in WRAPPER_KERNELS.items()}
     return DeviceTimeTable(device_s=sum(families.values()) / 1e3,
                            kernels=sum(n for _, _, n in kernels), family_ms=families,
-                           flash_ms=flash, top_ms=top_ms)
+                           flash_ms=flash, top_ms=top_ms, flash_launches=launches)
 
 
 def profile_device(fn, device: torch.device) -> Tuple[float, DeviceTimeTable]:

@@ -4,10 +4,13 @@
 the same captions and prompts); `seed_everything` seeds the host RNGs only,
 as the JAX package's: device draws come from explicit `torch.Generator`s.
 `print_system_info` prints the host's RAM and disk and each CUDA device.
+`kept_on_card` keeps the step's host-built constants on the card, for the
+captured step (training/step.py).
 """
 
 from __future__ import annotations
 
+import functools
 import random
 import re
 
@@ -72,3 +75,20 @@ def print_system_info() -> None:
         free, total = torch.cuda.mem_get_info(i)
         print(f"Device: {torch.cuda.get_device_name(i)} (id={i})")
         print(f"  memory: {(total - free) / 1e9:.2f} / {total / 1e9:.2f} GB in use")
+
+
+def kept_on_card(fn):
+    """Memoize `fn(*args, device)` where the device is a card: a constant
+    built on the host is copied to the card once, so that a captured step
+    (training/step.py) copies nothing from the host (a capture refuses
+    that copy; the step's eager first run makes the constant). Elsewhere
+    `fn` runs at each call: a tensor made under a fake-tensor trace must
+    not outlive it."""
+    kept = functools.lru_cache(maxsize=None)(fn)
+
+    @functools.wraps(fn)
+    def constant(*args):
+        device = torch.device(args[-1])
+        return kept(*args[:-1], device) if device.type == "cuda" else fn(*args)
+
+    return constant

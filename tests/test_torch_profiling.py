@@ -90,6 +90,15 @@ def test_device_time_table_splits_by_family():
     assert len(table.lines()) == 3 and table.lines()[0].startswith("[profile] 16633 device kernels")
 
 
+def test_flash_launches_from_kernel_names():
+    """A flash wrapper's launches are its main kernel's count in the
+    profile; flash_bwd's dQ conversion is not a second launch."""
+    table = profiling.device_time_table(SYNTHETIC)
+    assert table.flash_launches == {"flash_fwd": 70, "flash_bwd": 70}
+    assert profiling.device_time_table(SYNTHETIC[3:]).flash_launches == {"flash_fwd": 0,
+                                                                         "flash_bwd": 0}
+
+
 class _Event:
     """The methods of a raw profiler event (torch's _KinetoEvent) that
     `device_kernels` reads."""
