@@ -36,7 +36,7 @@ and prints no result):
    (flash kernels) against the same computation on the
    CPU (plain attention); on the card, the named plan keeping the flash
    residuals against full remat (and half the forward launches), and an int8
-   base against the bf16 one;
+   base against the float32 one;
 4. train: the full-width SDXL UNet (random weights from a seed, bf16), both
    text encoders, rank-16 LoRA on the 577 default sites, 3 TI rows per
    encoder and the three-group AdamW; per plan the eager first step, the
@@ -46,12 +46,35 @@ and prints no result):
    device, ops/flash_attention.py) and, in the profiled step, as the
    device ran them;
 11. graph (after phase 4): the captured step against the eager one on phase
-   4's trained state: GRAPH_STEPS steps eagerly twice and as the capture and
-   its replays, each from the same saved train state; each graph loss and
-   the run's update within GRAPH_FACTOR times the two eager runs'
-   difference, the generator's state bit-equal, the same flash launches,
-   counted and in a profiled step of each; s/step, device s/step, busy
-   share, kernels a step, capture seconds and peak memory of both;
+   4's trained state: GRAPH_STEPS steps eagerly GRAPH_EAGER_RUNS times and
+   as the capture and its replays twice, each from the same saved train
+   state; each graph loss within GRAPH_FACTOR times the eager runs' largest
+   difference at that step, and the run's update within GRAPH_FACTOR times
+   theirs (the second graph run's difference printed only), the generator's
+   state bit-equal, the same flash launches, counted and in a profiled step
+   of each; s/step, device s/step, busy share, kernels a step, capture
+   seconds and peak memory of both;
+12. options (after phase 11): the training options beyond LoRA+TI inside
+   the captured step. TE-LoRA (`text_encoder_lora_optimizer` "adamw": a
+   third optimizer group whose LR warms up, both text encoders under
+   autograd), int8+te (`quantize_base` "int8+te": int8 text encoders, the
+   conditioning recomputed in the backward) and DoRA (`use_dora`: a
+   per-output norm of W0 + s·BA at every LoRA'd projection, on the int8
+   base, unfused). At the reference phase's small shape, with PyTorch's
+   deterministic algorithms: the LoRA+TI baseline and each option's
+   first-step gradients of every group (UNet LoRA A, B and DoRA
+   magnitudes, TI rows, TE-LoRA A, B) on the card against the CPU (rel L2
+   <= OPTION_GRAD_TOL, int8+te quantized alike on both sides); then, per
+   option, phase 11's graph-against-eager gates over OPTION_EAGER_RUNS
+   eager runs, and the same update gate on each group alone, over the run
+   and at each step against the eager runs' difference at that step (a
+   replay must follow each group's LR schedule, not its capture's step).
+   At full width, on
+   phase 4's run recast under each option: GRAPH_WARM steps and
+   OPTION_TIMED timed replays, then a profiled one; finite metrics, every
+   group moved, 70/70 flash launches a step (a replay's counted on the
+   device); one `[options] {...}` line each with s/step, device s/step,
+   busy share, peak GiB and capture seconds;
 5. export: the trained adapters and TI rows through `save_checkpoint` (the
    kohya LoRA, the embeddings, special_params.json) and back through
    `load_checkpoint`, and the train state through `save_train_state` and
@@ -129,8 +152,8 @@ and backward under `offload:flash_out*,flash_lse*` against
 `save:flash_out*,flash_lse*` (gradients within 1e-3, the kept tensors in
 pinned host memory, the peak below save:'s; s/step of each).
 It then prints the `kernels` JSON line (launches from the cli run, by path
-in `launches_by_path`: the train plans, the optim phase's paths, the cli
-run, the sd15 run, the tools of phase 9 and rank 0 of each parallel run,
+in `launches_by_path`: the train plans, the options (`opt_*`), the optim
+phase's paths, the cli run, the sd15 run, the tools of phase 9 and rank 0 of each parallel run,
 a captured step's replays counted on the device where they launch; each
 kernel's every case under `cases`), the nvidia-smi
 line, and as the last line the result object. A `[time]` line after each
@@ -143,6 +166,7 @@ import argparse
 import copy
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import os
@@ -212,11 +236,24 @@ MAIN_PATH_CALLS = {"sdxl_4096": 10, "sdxl_1024": 60}
 # is captured (training/step.py): timed steps come after these
 GRAPH_WARM = 2
 GRAPH_STEPS = 4
-# phase 11's gate: the graph run within this factor of the two eager runs'
-# difference (flash_bwd's atomic dq makes two eager runs differ), with a
-# floor of GRAPH_ULPS float32 roundings of each loss
+# phase 11's gate: the graph run within this factor of the eager runs'
+# difference at the same step (flash_bwd's atomic dq makes two eager runs
+# differ), with a floor of GRAPH_ULPS float32 roundings of each loss
 GRAPH_FACTOR = 5
 GRAPH_ULPS = 8
+# eager runs of `_eager_vs_graph`: their differences, pair by pair, are the
+# spread the graph run is held to. Two eager runs launched from an idle card
+# often add dq in the same order through a step (phase 11's gate failed 4
+# of 7 runs on a correct program with two), and at the small shape a
+# group's update takes one of a few values at some steps (an Adam step of a
+# gradient near eps, which the atomics tip), the eager runs as often as the
+# graph: int8+te's in about 2 runs of 5, TE-LoRA's at its fourth step in
+# about 1 of 25, and three eager runs all missed what the graph took
+# (PERF.md, Findings). More eager runs sample those outcomes; the second
+# graph run is only printed, since a fault that only replays have would
+# widen its difference.
+GRAPH_EAGER_RUNS = 4  # phase 11, full width
+OPTION_EAGER_RUNS = 10  # phase 12, small shape
 
 
 def check(cond: bool, msg: str) -> None:
@@ -406,8 +443,9 @@ def phase_reference():
     - on the card, the named plan keeping flash_out/flash_lse vs full remat
       (gate 1e-3: the same kernels, dq's atomics aside), with half the
       forward launches;
-    - on the card, an int8 base vs the bf16 one under the resolved default
-      plan (gate 3e-2, the JAX package's int8 bound, tests/test_quant.py).
+    - on the card, an int8 base vs the float32 one under the resolved
+      default plan (gate 3e-2, the JAX package's int8 bound,
+      tests/test_quant.py).
     The loss is only printed: at the init scale the UNet's prediction is near
     zero, so the loss is about mean(noise^2) and does not see the attention
     outputs (it agrees to the last bit)."""
@@ -456,13 +494,13 @@ def phase_reference():
 
     plan = StepConfig.from_config(cuda["config"], 1.0).remat  # the product's default
     cuda["sc"] = dataclasses.replace(cuda["sc"], remat=plan)
-    _, bf16 = _lora_b_grads(cuda, draws, "cuda", sites="")
+    _, f32 = _lora_b_grads(cuda, draws, "cuda", sites="")
     freed = quantize_frozen(cuda["frozen"], "int8")
     _, int8 = _lora_b_grads(cuda, draws, "cuda", sites="")
-    q_rel = _rel(int8, bf16)
-    log(f"[reference] int8 base vs bf16 base under {plan}: all LoRA-B gradients rel L2 "
-        f"{q_rel:.2e} over {bf16.numel()} values (gate 3e-2); {freed * 2**30 / 1e6:.2f} MB freed")
-    check(q_rel <= 3e-2, f"the int8 base's gradients differ from the bf16 base's ({q_rel:.2e})")
+    q_rel = _rel(int8, f32)
+    log(f"[reference] int8 base vs float32 base under {plan}: all LoRA-B gradients rel L2 "
+        f"{q_rel:.2e} over {f32.numel()} values (gate 3e-2); {freed * 2**30 / 1e6:.2f} MB freed")
+    check(q_rel <= 3e-2, f"the int8 base's gradients differ from the float32 base's ({q_rel:.2e})")
     torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = tf32
 
 
@@ -493,12 +531,34 @@ def _moved(run, device):
                      _tree_to(run["batch"], device), run["generator"])
 
 
-def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: int, fuse: bool,
-               full: bool = False, config_path: str = TRAIN_CONFIG):
-    """Frozen models, trainable tree, optimizer and batch of one SDXL run of
-    the config at `config_path` (a LoRA, or a full finetune whose trainable
-    UNet is a copy of the base); `batch=None` keeps the config's batch size."""
+def _load_config(path: str = TRAIN_CONFIG, overrides: Optional[dict] = None):
+    """The TrainingConfig of the JSON at `path` with `overrides` applied
+    before it is built (so that, e.g., use_dora zeroes the decays)."""
     from sd_lora_trainer_tpu_torch.config import TrainingConfig
+
+    with open(path) as f:
+        return TrainingConfig.from_dict({**json.load(f), **(overrides or {})})
+
+
+def _te_lora(config, te1, te2, gen) -> dict:
+    """TE-LoRA adapters on both text encoders, as the CLI makes them."""
+    from sd_lora_trainer_tpu_torch.models.lora import TEXT_ENCODER_TARGETS, create_lora_params
+
+    return {w: create_lora_params(te, config.text_encoder_lora_rank, gen,
+                                  alpha_multiplier=config.lora_alpha_multiplier,
+                                  targets=TEXT_ENCODER_TARGETS, use_dora=config.use_dora)
+            for w, te in (("te1", te1), ("te2", te2))}
+
+
+def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: int, fuse: bool,
+               full: bool = False, config_path: str = TRAIN_CONFIG,
+               overrides: Optional[dict] = None):
+    """Frozen models, trainable tree, optimizer and batch of one SDXL run of
+    the config at `config_path` with `overrides` (a LoRA, DoRA or full
+    finetune, whose trainable UNet is a copy of the base, TE-LoRA when the
+    config names its optimizer); `batch=None` keeps the config's batch size.
+    The qkv projections are fused only where the CLI fuses them (`fuse` and
+    no DoRA); the base stays unquantized."""
     from sd_lora_trainer_tpu_torch.diffusion.schedulers import DDPMSchedule
     from sd_lora_trainer_tpu_torch.models import clip
     from sd_lora_trainer_tpu_torch.models.fuse import fuse_attention_projections
@@ -509,7 +569,7 @@ def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: 
 
     from sd_lora_trainer_tpu_torch.main import trainable_copy
 
-    config = TrainingConfig.from_json(config_path)
+    config = _load_config(config_path, overrides)
     batch = config.train_batch_size = batch or config.train_batch_size
     gen = torch.Generator(device=device).manual_seed(0)
     c1 = clip.CLIP_L_CONFIG if full else clip.TINY_CLIP_L_CONFIG
@@ -517,9 +577,10 @@ def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: 
     unet = init_unet_params(ucfg, gen, dtype=dtype, device=device)
     te1 = clip.init_clip_params(c1, gen, dtype=dtype, device=device)
     te2 = clip.init_clip_params(c2, gen, dtype=dtype, device=device)
-    lora = (create_lora_params(unet, rank, gen, alpha_multiplier=config.lora_alpha_multiplier)
+    lora = (create_lora_params(unet, rank, gen, alpha_multiplier=config.lora_alpha_multiplier,
+                               use_dora=config.use_dora)
             if config.is_lora else trainable_copy(unet))
-    if fuse:
+    if fuse and not config.use_dora:
         unet = fuse_attention_projections(unet)
     tables = [t["text_model"]["embeddings"]["token_embedding"]["weight"] for t in (te1, te2)]
     rows, targets = initialize_new_tokens(tables, config.n_tokens, gen)
@@ -548,6 +609,8 @@ def _build_run(ucfg, device, dtype, batch: Optional[int], latent_hw: int, rank: 
     trainable = {"unet": lora}
     if not config.disable_ti:
         trainable["ti"] = {"te1": rows[0], "te2": rows[1]}
+    if config.text_encoder_lora_optimizer is not None and config.is_lora:
+        trainable["te_lora"] = _te_lora(config, te1, te2, gen)
     return _assemble(config, frozen, trainable, batch_d, gen)
 
 
@@ -688,45 +751,56 @@ def _profile_step(train_step, run, expected) -> dict:
             "flash_ms": {k[:40]: v for k, v in table.flash_ms.items()}}
 
 
-def phase_graph(run) -> dict:
-    """Phase 11: the step as one captured graph against the eager step, on
-    phase 4's trained full-width SDXL LoRA+TI run (the "auto" plan). From
-    one saved train state: GRAPH_STEPS eager steps, twice, then as many
-    graph steps, the capture and its replays (the graph's key took its eager
-    first step from the same state beforehand). Gates: each graph step's
-    loss and the run's update within GRAPH_FACTOR times the two eager runs'
-    difference, the generator's state bit-equal after the steps, the same
-    flash launches (the replays' counted on the device). Then one profiled
-    step of each: s/step, device s/step, busy share, kernels a step, capture
-    seconds and peak memory, and the flash kernels the device ran, which
-    must be a step's share of the launches counted."""
-    import numpy as np
+def _group_params(state) -> dict:
+    """Each optimizer group's tensors, cloned."""
+    return {name: [p.detach().clone() for p in opt.params]
+            for name, opt in state.optimizer.groups.items()}
 
+
+def _flat(groups: dict) -> list:
+    return [t for ts_ in groups.values() for t in ts_]
+
+
+def _eager_pairs(out) -> list:
+    """The pairs of eager runs of an `_eager_vs_graph` record."""
+    return list(itertools.combinations([n for n in out if n.startswith("eager")], 2))
+
+
+def _eager_vs_graph(run, eager_runs: int, per_step: bool = False):
+    """From one saved train state of `run`: GRAPH_STEPS eager steps,
+    `eager_runs` times ("eager", "eager_2", ...), then as many graph steps,
+    the capture and its replays, twice ("graph", "graph_2"; the
+    second run replays the same capture; the graph's key took its eager
+    first step from the same state beforehand). Returns the two step
+    functions, each run's record (step seconds, losses, flash launches,
+    peak GiB, the groups' tensors at its end and, with `per_step`, after
+    each step, the generator's state) and the groups' tensors at the
+    start."""
     from sd_lora_trainer_tpu_torch import checkpoint as ck
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
     from sd_lora_trainer_tpu_torch.training import step as ts
-    from sd_lora_trainer_tpu_torch.utils.profiling import profile_device
 
     state, batch, frozen = run["state"], run["batch"], run["frozen"]
-    bs = run["config"].train_batch_size
     steps = {"eager": ts.make_train_step(run["sc"], capture=False),
              "graph": ts.make_train_step(run["sc"])}
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
     tmp = tempfile.mkdtemp(prefix="graph_", dir=os.path.join(ROOT, "build"))
     path = os.path.join(tmp, "train_state.safetensors")
     out = {}
     try:
         ck.save_train_state(path, state)
-        start = [p.detach().clone() for p in state.optimizer.params()]
+        start = _group_params(state)
         ck.restore_train_state(path, state)
         steps["graph"](state, batch, frozen)  # the key's eager first step
-        for name in ("eager", "eager_again", "graph"):
+        names = ["eager"] + [f"eager_{i}" for i in range(2, eager_runs + 1)]
+        for name in names + ["graph", "graph_2"]:
             step = steps[name.split("_")[0]]
             ck.restore_train_state(path, state)
             torch.cuda.synchronize()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launch_counts()  # this path's run starts here
-            secs, losses = [], []
+            secs, losses, after = [], [], []
             for _ in range(GRAPH_STEPS):
                 torch.cuda.synchronize()
                 t = time.perf_counter()
@@ -734,26 +808,89 @@ def phase_graph(run) -> dict:
                 torch.cuda.synchronize()
                 secs.append(time.perf_counter() - t)
                 losses.append(float(metrics["tot_loss"]))
+                if per_step:
+                    after.append(_group_params(state))
             out[name] = {"steps_s": secs, "losses": losses, "launches": fa.launch_counts(),
                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
-                         "final": [p.detach().clone() for p in state.optimizer.params()],
+                         "final": _group_params(state), "after": after,
                          "generator": state.generator.get_state()}
-        for name in ("eager", "graph"):  # one more step each, profiled
-            wall, table = profile_device(lambda: steps[name](state, batch, frozen),
-                                         torch.device("cuda"))
-            timed = out[name]["steps_s"][1:]  # the graph's first is its capture
-            mean = sum(timed) / len(timed)
-            out[name].update(s_per_step=mean, device_s=table.device_s, kernels=table.kernels,
-                             busy_share=table.device_s / mean, traced=table.flash_launches)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
-    eager, again, graph = out["eager"], out["eager_again"], out["graph"]
-    capture = _check_graph(steps["graph"], "graph phase")
+    return steps, out, start
+
+
+def _update_rels(out, start, group: Optional[str] = None) -> tuple:
+    """The graph run's update against the eager run's, and the eager runs'
+    spread (their pairs' largest difference, `_eager_pairs`), rel L2 over
+    every group's tensors (or `group`'s)."""
+    pick = _flat if group is None else (lambda g: g[group])
+
+    def rel(a, b):
+        return _rel_l2(pick(out[a]["final"]), pick(out[b]["final"]), pick(start))
+
+    return rel("graph", "eager"), max(rel(a, b) for a, b in _eager_pairs(out))
+
+
+def _loss_spreads(out) -> list:
+    """At each step, the eager runs' largest loss difference."""
+    return [max(abs(out[a]["losses"][k] - out[b]["losses"][k]) for a, b in _eager_pairs(out))
+            for k in range(GRAPH_STEPS)]
+
+
+def _graph_gates(out, start, what: str) -> None:
+    """Phase 11's gates on an `_eager_vs_graph` record: each graph loss
+    within GRAPH_FACTOR times the eager runs' largest difference at that
+    step (`_loss_spreads`; at least GRAPH_ULPS float32 roundings of the
+    loss), the whole update within GRAPH_FACTOR times theirs
+    (`_update_rels`), the generator's state bit-equal, the same flash
+    launches in every run."""
+    import numpy as np
+
+    eager, graph = out["eager"], out["graph"]
     eps = float(np.finfo(np.float32).eps)
-    loss_ok = [abs(g - e) <= GRAPH_FACTOR * max(abs(a - e), GRAPH_ULPS * eps * abs(e))
-               for e, a, g in zip(eager["losses"], again["losses"], graph["losses"])]
-    rel_graph = _rel_l2(graph["final"], eager["final"], start)
-    rel_again = _rel_l2(again["final"], eager["final"], start)
+    spreads = _loss_spreads(out)
+    loss_ok = [abs(g - e) <= GRAPH_FACTOR * max(d, GRAPH_ULPS * eps * abs(e))
+               for e, g, d in zip(eager["losses"], graph["losses"], spreads)]
+    rel_graph, rel_spread = _update_rels(out, start)
+    check(all(loss_ok), f"{what}: graph losses {graph['losses']} against eager {eager['losses']} "
+          f"(the eager runs' spread a step {[f'{d:.2e}' for d in spreads]}: "
+          + ", ".join(f"{n} {r['losses']}" for n, r in out.items() if n.startswith("eager_"))
+          + ")")
+    check(rel_graph <= GRAPH_FACTOR * max(rel_spread, 1e-6),
+          f"{what}: the graph run's update differs from the eager run's by rel L2 {rel_graph:.2e} "
+          f"(the eager runs' spread {rel_spread:.2e})")
+    check(all(torch.equal(r["generator"], eager["generator"]) for r in out.values()),
+          f"{what}: the generator's state after the graph steps differs from the eager steps'")
+    check(all(r["launches"] == eager["launches"] for r in out.values()),
+          f"{what}: flash launches: " + ", ".join(f"{n} {r['launches']}" for n, r in out.items()))
+
+
+def phase_graph(run) -> dict:
+    """Phase 11: the step as one captured graph against the eager step, on
+    phase 4's trained full-width SDXL LoRA+TI run (the "auto" plan). From
+    one saved train state: GRAPH_STEPS eager steps, GRAPH_EAGER_RUNS times,
+    then as many graph steps, the capture and its replays, twice
+    (`_eager_vs_graph`). Gates (`_graph_gates`): each graph step's loss and
+    the run's update within GRAPH_FACTOR times the eager runs' spread, the
+    generator's state bit-equal after the steps, the same flash launches
+    (the replays' counted on the device). Then one profiled
+    step of each: s/step, device s/step, busy share, kernels a step, capture
+    seconds and peak memory, and the flash kernels the device ran, which
+    must be a step's share of the launches counted."""
+    from sd_lora_trainer_tpu_torch.utils.profiling import profile_device
+
+    state, batch, frozen = run["state"], run["batch"], run["frozen"]
+    bs = run["config"].train_batch_size
+    steps, out, start = _eager_vs_graph(run, GRAPH_EAGER_RUNS)
+    for name in ("eager", "graph"):  # one more step each, profiled
+        wall, table = profile_device(lambda: steps[name](state, batch, frozen),
+                                     torch.device("cuda"))
+        timed = out[name]["steps_s"][1:]  # the graph's first is its capture
+        mean = sum(timed) / len(timed)
+        out[name].update(s_per_step=mean, device_s=table.device_s, kernels=table.kernels,
+                         busy_share=table.device_s / mean, traced=table.flash_launches)
+    eager, graph = out["eager"], out["graph"]
+    capture = _check_graph(steps["graph"], "graph phase")
     for name in ("eager", "graph"):
         r = out[name]
         log(f"[graph] {name}: SDXL 1024px bs={bs}, plan {run['sc'].remat!r}: "
@@ -765,27 +902,298 @@ def phase_graph(run) -> dict:
     log(f"[graph] capture {capture['capture_s']:.2f} s, its pool +{capture['pool_gib']:.2f} GiB "
         f"reserved, flash launches a replay {capture['launches']}; peak {graph['peak_gib']:.2f} "
         f"GiB graph vs {eager['peak_gib']:.2f} GiB eager")
-    log(f"[graph] graph vs eager: losses {[f'{abs(g - e):.2e}' for e, g in zip(eager['losses'], graph['losses'])]}, "
-        f"two eager runs {[f'{abs(a - e):.2e}' for e, a in zip(eager['losses'], again['losses'])]}; "
-        f"the {GRAPH_STEPS}-step update rel L2 {rel_graph:.2e}, two eager runs {rel_again:.2e} "
-        f"(gate {GRAPH_FACTOR}x); generator state equal "
-        f"{torch.equal(graph['generator'], eager['generator'])}")
-    check(all(loss_ok), f"graph losses {graph['losses']} against eager {eager['losses']} "
-          f"(again {again['losses']})")
-    check(rel_graph <= GRAPH_FACTOR * max(rel_again, 1e-6),
-          f"the graph run's update differs from the eager run's by rel L2 {rel_graph:.2e} "
-          f"({rel_again:.2e} between two eager runs)")
-    check(torch.equal(graph["generator"], eager["generator"])
-          and torch.equal(again["generator"], eager["generator"]),
-          "the generator's state after the graph steps differs from the eager steps'")
-    check(graph["launches"] == eager["launches"] == again["launches"],
-          f"flash launches: graph {graph['launches']}, eager {eager['launches']}")
+    rel_graph, rel_spread = _update_rels(out, start)
+
+    def diffs(a, b):
+        return [f"{abs(x - y):.2e}" for x, y in zip(out[a]["losses"], out[b]["losses"])]
+
+    log(f"[graph] graph vs eager: losses {diffs('graph', 'eager')}, eager runs "
+        + ", ".join(f"{a}-{b} {diffs(a, b)}" for a, b in _eager_pairs(out))
+        + f", the two graph runs (printed only) {diffs('graph_2', 'graph')}; the "
+        f"{GRAPH_STEPS}-step update rel L2 {rel_graph:.2e}, the eager runs' spread "
+        f"{rel_spread:.2e} (gate {GRAPH_FACTOR}x), the two graph runs "
+        f"{_rel_l2(_flat(out['graph_2']['final']), _flat(graph['final']), _flat(start)):.2e}; "
+        f"generator state equal {torch.equal(graph['generator'], eager['generator'])}")
+    _graph_gates(out, start, "graph phase")
     per_step = {k: v / GRAPH_STEPS for k, v in eager["launches"].items()}
     check(graph["traced"] == eager["traced"] == per_step,
           f"flash kernels in a profiled step: graph {graph['traced']}, eager {eager['traced']}, "
           f"counted a step {per_step}")
-    return {name: {k: v for k, v in r.items() if k not in ("final", "generator")}
+    return {name: {k: v for k, v in r.items() if k not in ("final", "after", "generator")}
             for name, r in out.items()} | {"capture": capture}
+
+
+# phase `options`: the training options beyond LoRA+TI that the CLI offers,
+# as overrides of the style SDXL config, in the order they were brought up
+OPTIONS = {"te_lora": {"text_encoder_lora_optimizer": "adamw"},
+           "int8_te": {"quantize_base": "int8+te"},
+           "dora": {"use_dora": True}}
+OPTION_PATHS = tuple(f"opt_{name}" for name in OPTIONS)
+OPTION_GRAD_TOL = 2e-2  # card vs CPU, the reference phase's gate (bf16 P and dS in flash)
+OPTION_TIMED = 2  # full width: timed replays after the GRAPH_WARM steps
+
+
+def _named_leaves(tree, path=()):
+    if torch.is_tensor(tree):
+        yield path, tree
+    elif isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _named_leaves(v, path + (k,))
+
+
+def _grads_by_kind(run, draws, device) -> dict:
+    """One loss and backward of `run`: the gradients of each group, split by
+    leaf name ("unet.a", "unet.b", "unet.magnitude", "ti", "te_lora.a",
+    "te_lora.b"), flat float32 on the CPU."""
+    for t in run["tensors"]:
+        t.grad = None
+    loss, _ = run["compute_loss"]({k: v.to(device) for k, v in draws.items()})
+    loss.backward()
+    out = {}
+    for group, tree in run["state"].trainable.items():
+        for path, t in _named_leaves(tree):
+            g = t.grad if t.grad is not None else torch.zeros_like(t)
+            kind = group if group == "ti" else f"{group}.{path[-1]}"
+            out.setdefault(kind, []).append(g.detach().float().flatten().cpu())
+    return {k: torch.cat(v) for k, v in out.items()}
+
+
+def _rel0(a, b) -> float:
+    """|a - b| / |b|, and |a - b| where b is all zeros (a gradient that is
+    exactly 0 at init, as TE-LoRA's A with B = 0)."""
+    n = float(b.norm())
+    return float((a - b).norm()) / n if n > 0 else float((a - b).norm())
+
+
+def _step_updates(out, start, group: str, k: int) -> dict:
+    """Each run's update of `group` at step k of an `_eager_vs_graph` record."""
+    return {name: [x - y for x, y in zip(r["after"][k][group],
+                                         r["after"][k - 1][group] if k else start[group])]
+            for name, r in out.items()}
+
+
+def _option_rows(out, start) -> dict:
+    """Each group's update, graph against eager and the eager runs' spread
+    (`_update_rels`), over the run and at each step (the spread a step: the
+    largest of `_eager_pairs`' differences), each step's eager update norm,
+    and the two graph runs' difference over the run (printed only)."""
+    rows = {}
+    for group in start:
+        rel_graph, rel_spread = _update_rels(out, start, group)
+        steps, spreads, norms = [], [], []
+        for k in range(GRAPH_STEPS):
+            upd = _step_updates(out, start, group, k)
+            norms.append(math.sqrt(sum(float((u.float() ** 2).sum()) for u in upd["eager"])))
+            if norms[-1] == 0:  # every run must stay put: `_option_gates`
+                steps.append(max(float(u.abs().max()) for n in upd for u in upd[n]))
+                spreads.append(0.0)
+                continue
+            steps.append(_rel_l2(upd["graph"], upd["eager"]))
+            spreads.append(max(_rel_l2(upd[a], upd[b]) for a, b in _eager_pairs(out)))
+        rows[group] = {"update_rel": rel_graph, "spread_rel": rel_spread, "step_rel": steps,
+                       "step_spread_rel": spreads, "step_norm": norms,
+                       "graph_pair_rel": _rel_l2(out["graph_2"]["final"][group],
+                                                 out["graph"]["final"][group], start[group])}
+    return rows
+
+
+def _option_gates(rows, what: str) -> None:
+    """On `_option_rows`, after phase 11's gates: each group's update
+    within GRAPH_FACTOR times the eager runs' spread over the run, and each
+    step's within GRAPH_FACTOR times their spread at that step, as a loss
+    is held: a replay that read a value of its capture's step (a scheduled
+    LR, a count) updates otherwise than the eager step of the same count. A
+    step whose eager update is exactly 0 (TE-LoRA's LR at count 0, warmup)
+    must be 0 in every run."""
+    for group, r in rows.items():
+        check(r["update_rel"] <= GRAPH_FACTOR * max(r["spread_rel"], 1e-6),
+              f"{what}: group {group}'s update differs between the graph and the eager run by rel "
+              f"L2 {r['update_rel']:.2e} (the eager runs' spread {r['spread_rel']:.2e})")
+        check(all(g <= GRAPH_FACTOR * max(d, 1e-6) if n > 0 else g == 0
+                  for g, d, n in zip(r["step_rel"], r["step_spread_rel"], r["step_norm"])),
+              f"{what}: group {group}'s updates a step differ between the graph and the eager run "
+              f"by {r['step_rel']} (the eager runs' spread {r['step_spread_rel']}; eager norms "
+              f"{r['step_norm']})")
+
+
+def _options_small() -> dict:
+    """Each option at the reference phase's small shape (JAX's tiny SDXL
+    UNet, head dim 32: flash at 1024 and 256 tokens): the first step's
+    gradients of every group on the card against the CPU, on the same
+    weights, batch and draws (int8+te quantizes both sides' encoders alike),
+    then, but for the LoRA+TI baseline, the graph against the eager step
+    (`_option_gates`). The card runs take PyTorch's deterministic
+    algorithms (cuDNN's, the index backward's): what then differs between
+    two runs is flash_bwd's atomic dq alone, the difference the gates are
+    made for. With the default algorithms the two eager runs' 4-step UNet
+    updates differed by 7.5e-4 (TE-LoRA) and 1.2e-5 (int8+te) in one run,
+    too spread for a ratio gate (PERF.md, Findings)."""
+    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+             torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return _options_small_runs()
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+         torch.backends.cudnn.deterministic) = saved[:3]
+        torch.use_deterministic_algorithms(saved[3])
+
+
+def _options_small_runs() -> dict:
+    from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
+    from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG
+    from sd_lora_trainer_tpu_torch.training.optimizers import current_lrs
+
+    out = {}
+    for name, overrides in (("lora_ti", {}),) + tuple(OPTIONS.items()):
+        cpu = _build_run(TINY_SDXL_UNET_CONFIG, "cpu", torch.float32, batch=2, latent_hw=64,
+                         rank=4, fuse=True, overrides=overrides)
+        cuda = _moved(cpu, "cuda")
+        cuda["state"].generator = torch.Generator(device="cuda").manual_seed(0)
+        base = "float32"
+        if cpu["config"].resolve_quantize_base() == "int8+te":
+            base = "int8+te"
+            for r in (cpu, cuda):
+                quantize_frozen(r["frozen"], base)
+        g = torch.Generator().manual_seed(2)
+        shape = tuple(cpu["batch"]["latent_mean"].shape[1:])
+        draws = {"latent_eps": torch.randn(shape, generator=g),
+                 "noise": torch.randn(shape, generator=g),
+                 "offset_noise": torch.randn(shape[0], 1, 1, shape[-1], generator=g),
+                 "timesteps": torch.tensor([17, 640])}
+        want, got = _grads_by_kind(cpu, draws, "cpu"), _grads_by_kind(cuda, draws, "cuda")
+        rel = {k: _rel0(got[k], want[k]) for k in want}
+        log(f"[options] small {name} (remat {cuda['sc'].remat!r}, remat_te "
+            f"{cuda['sc'].remat_te}, base {base}): first-step gradients card vs CPU rel L2 "
+            + ", ".join(f"{k} {v:.2e}" for k, v in rel.items()) + f" (gate {OPTION_GRAD_TOL})")
+        check(all(v <= OPTION_GRAD_TOL for v in rel.values()),
+              f"options {name}: the card's gradients differ from the CPU's: {rel}")
+        row = {"grad_rel": rel}
+        if name != "lora_ti":
+            steps, record, start = _eager_vs_graph(cuda, OPTION_EAGER_RUNS, per_step=True)
+            _check_graph(steps["graph"], f"options small {name}")
+            row["groups"] = _option_rows(record, start)
+            e, gr = record["eager"]["losses"], record["graph"]["losses"]
+            lrs = [current_lrs(cuda["config"], k) for k in range(GRAPH_STEPS)]
+            log(f"[options] small {name}: graph vs eager losses "
+                f"{[f'{abs(x - y):.2e}' for x, y in zip(e, gr)]} (the eager runs' spread "
+                f"{[f'{d:.2e}' for d in _loss_spreads(record)]}); per group: "
+                + json.dumps({grp: {k: (f"{v:.2e}" if isinstance(v, float) else
+                                        [f"{x:.2e}" for x in v]) for k, v in r.items()}
+                              for grp, r in row["groups"].items()})
+                + f"; scheduled LRs a step {[{k: f'{v:.3g}' for k, v in lr.items()} for lr in lrs]}")
+            _graph_gates(record, start, f"options small {name}")
+            _option_gates(row["groups"], f"options small {name}")
+        out[name] = row
+        del cpu, cuda
+        gc.collect()
+    return out
+
+
+def _option_full_run(run, overrides: dict):
+    """Phase 4's full-width SDXL run (the "auto" plan, its int8 fused UNet)
+    recast under one option, as the CLI would build it: TE-LoRA adapters on
+    both bf16 encoders; int8+te quantizes the encoders of a copy of the
+    frozen models; DoRA trains on unfused projections (the CLI fuses no qkv
+    under DoRA), so its base is the same seeded UNet built anew, its
+    magnitudes taken from the bf16 weights before they are quantized."""
+    from sd_lora_trainer_tpu_torch.models.lora import create_lora_params
+    from sd_lora_trainer_tpu_torch.models.quant import quantize_base_weights, quantize_frozen
+    from sd_lora_trainer_tpu_torch.models.unet import SDXL_UNET_CONFIG, init_unet_params
+
+    config = _load_config(TRAIN_CONFIG, overrides)
+    config.train_batch_size = run["config"].train_batch_size
+    frozen = dataclasses.replace(run["frozen"])
+    trainable = copy.deepcopy(run["state"].trainable)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if config.use_dora:
+        unet = init_unet_params(SDXL_UNET_CONFIG, torch.Generator(device="cuda").manual_seed(0),
+                                dtype=torch.bfloat16, device="cuda")
+        trainable["unet"] = create_lora_params(unet, config.lora_rank, gen,
+                                               alpha_multiplier=config.lora_alpha_multiplier,
+                                               use_dora=True)
+        frozen.unet_params = quantize_base_weights(unet)
+        del unet
+    if config.text_encoder_lora_optimizer is not None:
+        trainable["te_lora"] = _te_lora(config, frozen.te1_params, frozen.te2_params, gen)
+    quantize_frozen(frozen, config.resolve_quantize_base())
+    return _assemble(config, frozen, trainable, run["batch"], gen)
+
+
+def _drive_option(opt_run, name: str) -> dict:
+    """GRAPH_WARM steps (the eager first, the capture) and OPTION_TIMED
+    timed replays of an option's full-width step, then one profiled replay.
+    Gates: finite metrics, the plan's flash launches every step (a replay's
+    counted on the device), the step ran as one graph, every group moved."""
+    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.training import step as ts
+
+    state, batch, frozen = opt_run["state"], opt_run["batch"], opt_run["frozen"]
+    expected = PLAN_LAUNCHES["auto"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_step = ts.make_train_step(opt_run["sc"])
+    start = _group_params(state)
+    fa.reset_launch_counts()  # this option's run of the main path starts here
+    before, secs, losses = fa.launch_counts(), [], []
+    for i in range(GRAPH_WARM + OPTION_TIMED):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        metrics = train_step(state, batch, frozen)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        now = fa.launch_counts()
+        counts = {n: now[n] - before[n] for n in now}
+        before = now
+        vals = {k: float(v) for k, v in metrics.items()}
+        losses.append(vals["tot_loss"])
+        check(all(math.isfinite(x) for x in vals.values()), f"options {name} step {i}: {vals}")
+        check(vals["grad_norm"] > 0, f"options {name} step {i}: grad_norm {vals['grad_norm']}")
+        check(counts == expected, f"options {name} step {i}: launches {counts} != {expected}")
+    launches = fa.launch_counts()
+    capture = _check_graph(train_step, f"options {name}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    moved = {g: max(float((p.detach() - p0).abs().max()) for p, p0 in zip(opt.params, start[g]))
+             for g, opt in state.optimizer.groups.items()}
+    check(all(v > 0 for v in moved.values()), f"options {name}: a group did not move: {moved}")
+    prof = _profile_step(train_step, opt_run, expected)
+    mean = _mean(secs[GRAPH_WARM:])
+    return {"option": name, "remat": opt_run["sc"].remat, "remat_te": opt_run["sc"].remat_te,
+            "s_per_step": mean, "steps_s": secs, "device_s": prof["device_s"],
+            "busy_share": prof["device_s"] / mean, "peak_gib": peak,
+            "capture_s": capture["capture_s"], "pool_gib": capture["pool_gib"],
+            "kernels": prof["kernels"], "losses": losses, "max_move": moved,
+            "launches": launches}
+
+
+def phase_options(run) -> dict:
+    """The options the CLI offers beyond LoRA+TI, on the card inside the
+    captured step: TE-LoRA (a third optimizer group, both text encoders
+    under autograd), int8+te (int8 encoders, the conditioning recomputed in
+    the backward) and DoRA (a per-output norm of W0 + s·BA at every LoRA'd
+    layer, on the int8 base). At the small shape (`_options_small`): card
+    against CPU, graph against eager. At full width (`_drive_option`, on
+    phase 4's run): each option's step as a graph, one `[options] {...}`
+    line each with s/step, device s/step, busy share, peak GiB and capture
+    seconds. Returns the small shape's numbers and each option's row."""
+    out = {"small": _options_small()}
+    for name, overrides in OPTIONS.items():
+        t0 = time.perf_counter()
+        opt_run = _option_full_run(run, overrides)
+        torch.cuda.synchronize()
+        built = time.perf_counter() - t0
+        row = _drive_option(opt_run, name)
+        row["build_s"] = built
+        log("[options] " + json.dumps({k: v for k, v in row.items() if k != "launches"}))
+        out[name] = row
+        del opt_run
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase_export(run):
@@ -2149,6 +2557,8 @@ def main() -> int:
     lap("train")
     graph = phase_graph(run)
     lap("graph")
+    options = phase_options(run)
+    lap("options")
     phase_export(run)
     offload = phase_offload(run)
     del run
@@ -2166,6 +2576,7 @@ def main() -> int:
     launches = cli["launches"]
     by_path = {f"train_{p}": r["launches"] for p, r in results.items()}
     by_path.update(graph_eager=graph["eager"]["launches"], graph=graph["graph"]["launches"])
+    by_path.update({f"opt_{name}": options[name]["launches"] for name in OPTIONS})
     by_path.update({path: optim[path]["launches"] for path in OPTIM_PATHS})
     by_path.update(cli_train=cli["train_launches"], cli_render=cli["render_launches"])
     by_path.update(sd15_train=sd15["train_launches"], sd15_render=sd15["render_launches"])
@@ -2175,9 +2586,10 @@ def main() -> int:
     for name, s in summary.items():
         bound, by = _bound_ms(s["flops"], s["bytes"])
         check(launches[name] > 0, f"{name} was never launched on the main path")
-        check(all(by_path[path][name] > 0 for path in OPTIM_PATHS + tuple(PARALLEL_RUNS)
-                  + ("sd15_train", "graph")),
-              f"{name} was not launched on every optim, parallel, sd15 and graph path: {by_path}")
+        check(all(by_path[path][name] > 0 for path in OPTIM_PATHS + OPTION_PATHS
+                  + tuple(PARALLEL_RUNS) + ("sd15_train", "graph")),
+              f"{name} was not launched on every optim, option, parallel, sd15 and graph path: "
+              f"{by_path}")
         check(all(by_path[path][name] > 0 for path, names in TOOL_PATHS.items() if name in names),
               f"{name} was not launched on every tool path: {by_path}")
         entries.append({

@@ -22,12 +22,34 @@ from sd_lora_trainer_tpu_torch.models.lora import LoraAlpha
 from sd_lora_trainer_tpu_torch.models.quant import QTensor
 
 
+# the one definition of the two packages' layouts, by a tensor's rank: the
+# port's axes in JAX's order (a matrix (out, in) as JAX's (in, out), a conv
+# weight OIHW as HWIO), and the inverse; other ranks are laid out alike
+_TO_JAX = {2: (1, 0), 4: (2, 3, 1, 0)}
+_TO_TORCH = {n: tuple(int(i) for i in np.argsort(p)) for n, p in _TO_JAX.items()}
+
+
 def _to_torch_layout(x: np.ndarray) -> np.ndarray:
-    if x.ndim == 2:
-        return x.T
-    if x.ndim == 4:
-        return np.transpose(x, (3, 2, 0, 1))
-    return x
+    return np.transpose(x, _TO_TORCH[x.ndim]) if x.ndim in _TO_TORCH else x
+
+
+def relaid(ndim: int) -> bool:
+    """Whether a tensor of rank `ndim` is laid out otherwise in JAX."""
+    return ndim in _TO_JAX
+
+
+def jax_layout(t: torch.Tensor) -> torch.Tensor:
+    """A view of the port's tensor `t` in the JAX package's layout."""
+    return t.permute(_TO_JAX[t.ndim]) if t.ndim in _TO_JAX else t
+
+
+def from_jax_order(flat: torch.Tensor, shape) -> torch.Tensor:
+    """A view in `shape` (the port's layout) of `flat`, which holds the
+    elements in `jax_layout`'s order: the inverse of
+    `jax_layout(t).reshape(-1)`."""
+    if len(shape) not in _TO_JAX:
+        return flat.view(shape)
+    return flat.view([shape[i] for i in _TO_JAX[len(shape)]]).permute(_TO_TORCH[len(shape)])
 
 
 def _tensor(x, device, dtype) -> torch.Tensor:

@@ -8,7 +8,9 @@ hand, one process per card, over `torch.distributed` process groups:
   the loss on its own rows of the global batch and the gradients are averaged
   over the "data" group in flat buckets per dtype.
 - **fsdp** (full finetune): each trainable UNet tensor is kept as its rank's
-  shard of its flat storage, padded to whole AdamW8bit blocks (`FsdpShards`).
+  shard of its elements flattened in the JAX layout's order (AdamW8bit's
+  block order, interop.py `jax_layout`), padded to whole
+  blocks (`FsdpShards`).
   A down/mid/up layer all-gathers its tensors in one flat bucket when it
   runs (inside its remat region, so the recompute gathers again) and the
   gradients come back through the gather's backward, one reduce-scatter.
@@ -39,6 +41,7 @@ import torch
 import torch.distributed as dist
 import torch.nn.functional as F
 
+from sd_lora_trainer_tpu_torch.interop import from_jax_order, jax_layout
 from sd_lora_trainer_tpu_torch.training.quantized_adam import BLOCK
 
 # torch >= 2.12 renames the tensor collectives; the old names are what older
@@ -191,7 +194,7 @@ class _GatherBucket(torch.autograd.Function):
         ctx.group, ctx.lens = group, [s.numel() for s in shards]
         flat = torch.cat([s.reshape(-1) for s in shards])
         full = group.all_gather(flat).view(group.size, -1)
-        return tuple(part.reshape(-1)[:math.prod(shape)].view(shape)
+        return tuple(from_jax_order(part.reshape(-1)[:math.prod(shape)], shape)
                      for part, shape in zip(full.split(ctx.lens, dim=1), shapes))
 
     @staticmethod
@@ -200,7 +203,7 @@ class _GatherBucket(torch.autograd.Function):
         # buffer (the zeros are the padding), one reduce-scatter of it
         buf = grads[0].new_zeros(ctx.group.size, sum(ctx.lens))
         for g, col in zip(grads, buf.split(ctx.lens, dim=1)):
-            k, flat = col.shape[1], g.reshape(-1)
+            k, flat = col.shape[1], jax_layout(g).reshape(-1)
             rows, rest = divmod(flat.numel(), k)
             col[:rows].copy_(flat[:rows * k].view(rows, k))
             if rest:
@@ -484,7 +487,7 @@ class FsdpShards:
     def shard_of(self, full: torch.Tensor, fill: float = 0.0) -> torch.Tensor:
         """This rank's shard of a whole tensor."""
         n, s = self.group.size, _shard_len(full.numel(), self.group.size)
-        flat = F.pad(full.reshape(-1), (0, n * s - full.numel()), value=fill)
+        flat = F.pad(jax_layout(full).reshape(-1), (0, n * s - full.numel()), value=fill)
         return flat[self.group.rank * s:(self.group.rank + 1) * s].clone()
 
     def gather(self, tree):
@@ -510,7 +513,7 @@ class FsdpShards:
         its gradient), on every rank (a collective)."""
         shape = whole_shape(shard)
         value = shard if value is None else value
-        return self.group.all_gather(value.detach())[:math.prod(shape)].view(shape)
+        return from_jax_order(self.group.all_gather(value.detach())[:math.prod(shape)], shape)
 
     def on_rank0(self, whole: torch.Tensor) -> Optional[torch.Tensor]:
         """A gathered tensor in host memory on rank 0 (which writes the
@@ -526,7 +529,7 @@ class FsdpShards:
         numel = math.prod(shape)
         gathered = self.group.all_gather(value.contiguous())
         if value.shape == shard.shape:
-            return gathered[:numel].view(shape)
+            return from_jax_order(gathered[:numel], shape)
         return gathered[: (numel + BLOCK - 1) // BLOCK]
 
     def state_shard(self, name: str, full: torch.Tensor, shard: torch.Tensor) -> torch.Tensor:

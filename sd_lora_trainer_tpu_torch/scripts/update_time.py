@@ -1,6 +1,7 @@
-"""One AdamW update of the full-finetune SDXL UNet, timed on one card.
+"""One AdamW (or AdamW8bit) update of the full-finetune SDXL UNet, timed on one card.
 
     python -m sd_lora_trainer_tpu_torch.scripts.update_time [--rounds 3] [--device cuda]
+        [--optimizer adamw|adamw8bit]
 
 Times the port's AdamW (training/optimizers.py: optax's adamw in foreach
 ops, its LR and bias corrections device tensors, as a captured step needs)
@@ -15,7 +16,10 @@ with the scalar in the tensors' dtype and in float32 (the port passes the
 former). Prints the card's name and power limit, each time in ms, and one
 JSON line with the means and the update's bound: the bytes it must move
 (read p, g, m, v; write p, m, v) over the card's memory rate
-(utils/profiling.py PEAK_BYTES).
+(utils/profiling.py PEAK_BYTES). With `--optimizer adamw8bit` it times the
+port's AdamW8bit update (training/quantized_adam.py; no library has one
+here) 2 * `--rounds` times after its warm-up, on the same tensors; its
+bound moves p and g in bf16 and each moment as one byte a value.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--rounds", type=int, default=3)
     parser.add_argument("--device", default="cuda")
+    parser.add_argument("--optimizer", choices=("adamw", "adamw8bit"), default="adamw")
     args = parser.parse_args(argv)
     device = resolve_device(args.device)
     if device.type != "cuda":
@@ -41,6 +46,7 @@ def main(argv=None) -> int:
     from sd_lora_trainer_tpu_torch.config import TrainingConfig
     from sd_lora_trainer_tpu_torch.models.unet import SDXL_UNET_CONFIG, init_unet_params
     from sd_lora_trainer_tpu_torch.training.optimizers import AdamW, base_unet_lr, group_tensors
+    from sd_lora_trainer_tpu_torch.training.quantized_adam import AdamW8bit
     from sd_lora_trainer_tpu_torch.utils.profiling import PEAK_BYTES, device_description
 
     config = TrainingConfig(lora_training_urls="x", concept_mode="style", is_lora=False,
@@ -52,10 +58,17 @@ def main(argv=None) -> int:
     with torch.no_grad():
         for p in params:
             p.grad = torch.randn(p.shape, generator=gen, dtype=p.dtype, device=device) * 1e-3
-    port = AdamW(params, wd)
     lr_t = torch.full((), lr, dtype=torch.float32, device=device)
-    library = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
-    updates = {"port": lambda: port.step(lr_t), "torch": library.step}
+    if args.optimizer == "adamw8bit":
+        port = AdamW8bit(params, weight_decay=wd)
+        updates = {"port": lambda: port.step(lr_t)}
+        # p read and written, g read (bf16); m and v read and written, a byte each
+        order, value_bytes = ("port", "port"), 3 * 2 + 4 * 1
+    else:
+        port = AdamW(params, wd)
+        library = torch.optim.AdamW(params, lr=lr, betas=(0.9, 0.999), eps=1e-8, weight_decay=wd)
+        updates = {"port": lambda: port.step(lr_t), "torch": library.step}
+        order, value_bytes = ("port", "torch", "torch", "port"), 7 * params[0].element_size()
 
     grads = [p.grad for p in params]
     scalar = torch.full((), 0.999, device=device)
@@ -74,21 +87,22 @@ def main(argv=None) -> int:
         timed(name)
     ms = {name: [] for name in updates}
     for _ in range(args.rounds):
-        for name in ("port", "torch", "torch", "port"):
+        for name in order:
             ms[name].append(timed(name))
     for name in updates:
         if name.startswith("div_"):
             ms[name] += [timed(name) for _ in range(args.rounds)]
     n = sum(p.numel() for p in params)
-    moved = 7 * n * params[0].element_size()
+    moved = value_bytes * n
     card = device_description(device)
     print(f"[update_time] card: {card}")
-    print(f"[update_time] SDXL UNet full finetune: {n / 1e9:.3f}B bf16 params in {len(params)} "
-          f"tensors, lr {lr}, weight decay {wd}")
+    print(f"[update_time] SDXL UNet full finetune under {args.optimizer}: {n / 1e9:.3f}B bf16 "
+          f"params in {len(params)} tensors, lr {lr}, weight decay {wd}")
     for name, xs in ms.items():
         print(f"[update_time] {name}: {[round(x, 3) for x in xs]} ms")
     mean = {name: sum(xs) / len(xs) for name, xs in ms.items()}
-    print(json.dumps({"card": card, "params": n, "tensors": len(params), "ms": ms,
+    print(json.dumps({"card": card, "optimizer": args.optimizer, "params": n,
+                      "tensors": len(params), "ms": ms,
                       "mean_ms": mean, "bound_ms": moved / PEAK_BYTES * 1e3,
                       "bound_by": "bytes"}))
     return 0

@@ -9,6 +9,15 @@ tests/golden/bnb_dynamic_map.json) with one fp32 absmax scale per block of
 absmax of 0 is read as a scale of 1. A step dequantizes, updates and
 requantizes in fp32.
 
+Block order: a block is 2048 consecutive elements of the tensor in the JAX
+package's layout (interop.py `jax_layout`: a matrix's transpose, a conv
+weight's HWIO), not of the port's storage. Every trainable UNet matrix here
+is the transpose of JAX's and every conv weight the OIHW of its HWIO, so
+blocks taken in storage order would group other elements under one absmax
+scale, and the quantized moments, so the updates, would differ from JAX's.
+A saved state says so (`JAX_ORDER_KEY`); one saved without it, whose blocks
+followed the storage order, is re-blocked when it is loaded.
+
 Layout: the JAX package updates tensor by tensor, which in eager torch is
 tens of kernels for each of a full-finetune UNet's ~1,700 tensors. Here the
 padded tensors of one dtype and device are laid out one after another in
@@ -29,9 +38,13 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from sd_lora_trainer_tpu_torch.interop import from_jax_order, jax_layout, relaid
+
 BLOCK = 2048
 # elements per flat buffer: bounds the step's fp32 temporaries (~1.5 GB)
 BUCKET = 1 << 25
+# the state entry that marks blocks in JAX's element order
+JAX_ORDER_KEY = "blocks_in_jax_order"
 
 
 def _pad_len(n: int) -> int:
@@ -124,8 +137,9 @@ class _Bucket:
         self.nu_scale = torch.zeros(n, dtype=torch.float32, device=dev)
 
     def views(self, flat: torch.Tensor, params: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Each tensor's region of a flat [n_blocks * BLOCK] buffer, in its shape."""
-        return [flat[f * BLOCK: f * BLOCK + p.numel()].view(p.shape)
+        """Each tensor's region of a flat [n_blocks * BLOCK] buffer, in its
+        shape, the region holding its elements in the JAX layout's order."""
+        return [from_jax_order(flat[f * BLOCK: f * BLOCK + p.numel()], p.shape)
                 for f, p in zip(self.first_block, params)]
 
 
@@ -215,7 +229,8 @@ class AdamW8bit:
                 "nu_q": bk.nu_q[f:f + nb], "nu_scale": bk.nu_scale[f:f + nb]}
 
     def state_tensors(self) -> Dict[str, torch.Tensor]:
-        out = {"count": torch.tensor(self.count, dtype=torch.int64)}
+        out = {"count": torch.tensor(self.count, dtype=torch.int64),
+               JAX_ORDER_KEY: torch.tensor(1, dtype=torch.int64)}
         for i in range(len(self.params)):
             for name, t in self.moments(i).items():
                 out[f"{name}.{i:05d}"] = t
@@ -223,7 +238,31 @@ class AdamW8bit:
 
     @torch.no_grad()
     def load_state_tensors(self, sd: Dict[str, torch.Tensor]) -> None:
+        """Copy a state of `state_tensors` in. A state without
+        `JAX_ORDER_KEY` has its blocks in the port's storage order: each
+        matrix's and conv weight's moments are dequantized in that order
+        and quantized anew in JAX's. An fsdp shard's whole tensor is not at
+        hand, so such a state is refused there."""
         self.count = int(sd["count"])
-        for i in range(len(self.params)):
+        old = JAX_ORDER_KEY not in sd
+        for i, p in enumerate(self.params):
+            saved = {name: sd[f"{name}.{i:05d}"] for name in self.moments(i)}
+            if old and relaid(len(getattr(p, "fsdp_whole_shape", ()))):
+                raise ValueError(
+                    "this AdamW8bit state has its blocks in the port's storage order, which an "
+                    "fsdp shard cannot re-block: resume it without fsdp, or start anew")
+            if old and relaid(p.ndim):
+                saved = _reblocked(saved, p.shape, p.device)
             for name, t in self.moments(i).items():
-                t.copy_(sd[f"{name}.{i:05d}"])
+                t.copy_(saved[name])
+
+
+def _reblocked(saved: Dict[str, torch.Tensor], shape, device) -> Dict[str, torch.Tensor]:
+    """One tensor's quantized moments, blocked in storage order, blocked in
+    JAX's element order (dequantized, then quantized anew)."""
+    out = {}
+    for m, signed in (("mu", True), ("nu", False)):
+        x = dequantize_blockwise(saved[f"{m}_q"].to(device), saved[f"{m}_scale"].to(device),
+                                 shape, signed=signed)
+        out[f"{m}_q"], out[f"{m}_scale"] = quantize_blockwise(jax_layout(x), signed=signed)
+    return out

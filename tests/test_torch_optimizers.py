@@ -134,9 +134,13 @@ def test_quantize_blockwise_matches_jax(signed):
 def test_adamw8bit_trajectory_matches_jax(bucket):
     """8 steps at a schedule LR with weight decay; gradients spanning seven
     decades. The flat layout (one buffer, or one per tensor or two) gives
-    JAX's per-tensor states bit for bit."""
+    JAX's per-tensor states bit for bit. Each tensor is in its package's
+    layout, as in a model (a matrix transposed, a conv weight HWIO in JAX
+    and OIHW in the port): blocks follow JAX's element order."""
+    from sd_lora_trainer_tpu_torch.interop import _to_torch_layout as port_layout
+
     rng = np.random.default_rng(2)
-    shapes = SHAPES + [(3000,), (2, 2100)]
+    shapes = SHAPES + [(3000,), (2, 2100), (3, 3, 16, 48)]
     init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
 
     def schedule(count):
@@ -145,19 +149,19 @@ def test_adamw8bit_trajectory_matches_jax(bucket):
     jopt = jq.adamw8bit(schedule, weight_decay=0.01)
     jp = [jnp.asarray(x) for x in init]
     state = jopt.init(jp)
-    tp = [torch.tensor(x, requires_grad=True) for x in init]
+    tp = [torch.tensor(np.ascontiguousarray(port_layout(x)), requires_grad=True) for x in init]
     topt = tq.AdamW8bit(tp, weight_decay=0.01, bucket=bucket)
-    assert len(topt.buckets) == (1 if bucket == tq.BUCKET else 4)
+    assert len(topt.buckets) == (1 if bucket == tq.BUCKET else 5)
     for k in range(8):
         grads = [(rng.standard_normal(s) * 10.0 ** rng.integers(-6, 1)).astype(np.float32)
                  for s in shapes]
         updates, state = jopt.update([jnp.asarray(g) for g in grads], state, jp)
         jp = optax.apply_updates(jp, updates)
         for p, g in zip(tp, grads):
-            p.grad = torch.tensor(g)
+            p.grad = torch.tensor(np.ascontiguousarray(port_layout(g)))
         topt.step(1e-3 * (1.0 + k))
         for i, (p, p_j) in enumerate(zip(tp, jp)):
-            _close(p, p_j, rtol=1e-6, atol=1e-9)
+            _close(p, port_layout(np.asarray(p_j)), rtol=1e-6, atol=1e-9)
             mom = topt.moments(i)
             assert mom["mu_q"].dtype == torch.uint8 and mom["mu_scale"].shape == (mom["mu_q"].shape[0],)
             for name, ref in (("mu_q", state.mu[i].q), ("mu_scale", state.mu[i].scale),
@@ -165,7 +169,7 @@ def test_adamw8bit_trajectory_matches_jax(bucket):
                 np.testing.assert_array_equal(mom[name].numpy(), np.asarray(ref), err_msg=name)
     assert topt.count == int(state.count) == 8
     state_bytes = sum(t.numel() * t.element_size() for k, t in topt.state_tensors().items()
-                      if k != "count")
+                      if k not in ("count", tq.JAX_ORDER_KEY))
     assert state_bytes == sum(2 * (m.q.size + 4 * m.q.shape[0]) for m in state.mu)
 
 
@@ -186,6 +190,63 @@ def _tree(rng):
             "ti": {"te1": rng.standard_normal((3, 8)).astype(np.float32),
                    "te2": rng.standard_normal((3, 8)).astype(np.float32)},
             "te_lora": {"te1": {"q": rng.standard_normal((2, 8)).astype(np.float32)}}}
+
+
+def _moment(opt, i, m, signed):
+    """Tensor i's moment `m` ("mu" or "nu") dequantized, in its layout."""
+    from sd_lora_trainer_tpu_torch.interop import from_jax_order
+
+    p, mom = opt.params[i], opt.moments(i)
+    flat = tq.dequantize_blockwise(mom[f"{m}_q"], mom[f"{m}_scale"], (p.numel(),), signed=signed)
+    return from_jax_order(flat, p.shape)
+
+
+def test_adamw8bit_reblocks_a_state_saved_in_storage_order():
+    """A state saved before the blocks followed JAX's element order (no
+    JAX_ORDER_KEY, each tensor blocked in the port's storage order) is not
+    copied in as it is: a matrix's and a conv weight's moments are
+    re-blocked, so they dequantize to the saved ones within the codes'
+    rounding (read as JAX-order blocks they would be other elements'), and a
+    vector's codes are taken bit for bit. Under fsdp such a state is
+    refused."""
+    rng = np.random.default_rng(3)
+    shapes = [(64, 96), (48, 16, 3, 3), (300,)]
+    init = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    params = [torch.tensor(x, requires_grad=True) for x in init]
+    opt = tq.AdamW8bit(params, weight_decay=0.01)
+    for _ in range(2):
+        for p in params:
+            p.grad = torch.tensor(rng.standard_normal(p.shape).astype(np.float32))
+        opt.step(1e-3)
+    old, want = {"count": torch.tensor(opt.count)}, {}
+    for i, p in enumerate(params):
+        for m, signed in (("mu", True), ("nu", False)):
+            want[i, m] = _moment(opt, i, m, signed)
+            old[f"{m}_q.{i:05d}"], old[f"{m}_scale.{i:05d}"] = tq.quantize_blockwise(
+                want[i, m], signed=signed)
+    assert tq.JAX_ORDER_KEY in opt.state_tensors() and tq.JAX_ORDER_KEY not in old
+
+    fresh = tq.AdamW8bit([torch.tensor(x, requires_grad=True) for x in init], weight_decay=0.01)
+    fresh.load_state_tensors(old)
+    assert fresh.count == 2
+    for i, shape in enumerate(shapes):
+        for m, signed in (("mu", True), ("nu", False)):
+            got, ref = _moment(fresh, i, m, signed), want[i, m]
+            assert float((got - ref).norm() / ref.norm()) < 2e-2, (shape, m)
+            if len(shape) == 1:
+                assert torch.equal(fresh.moments(i)[f"{m}_q"], old[f"{m}_q.{i:05d}"])
+            else:  # the old codes read as JAX-order blocks
+                as_is = tq.AdamW8bit([torch.zeros(shape)])
+                as_is.load_state_tensors({tq.JAX_ORDER_KEY: torch.tensor(1), "count": old["count"],
+                                          **{f"{n}.00000": old[f"{n}.{i:05d}"] for n in
+                                             ("mu_q", "mu_scale", "nu_q", "nu_scale")}})
+                assert float((_moment(as_is, 0, m, signed) - ref).norm() / ref.norm()) > 0.5
+
+    shard = torch.zeros(64 * 96 // 2, requires_grad=True)
+    shard.fsdp_whole_shape = torch.Size((64, 96))
+    with pytest.raises(ValueError, match="storage order"):
+        tq.AdamW8bit([shard]).load_state_tensors(
+            {k: v for k, v in old.items() if k.endswith((".00000", "count"))})
 
 
 def _by_path(tree, prefix=""):

@@ -17,7 +17,9 @@ so it runs on a machine that has only PyTorch:
   step 2 and replayed through steps 2-8, across the end of the UNet's LR
   warm-up and the TI freeze, matches the eager run within 1e-6 of each
   tensor's largest value under AdamW, Prodigy and AdamW8bit (the same ops
-  on the same values: measured equal);
+  on the same values: measured equal), and under AdamW with each option of
+  chip_smoke's phase 12 (TE-LoRA across its LR warm-up, int8+te with the
+  conditioning recomputed, DoRA);
 - the LRs the update reads at the device count the host fills equal the
   schedules at that step (float32 of the float64 value), and the TI
   freeze and the bias corrections equal the host's rules, at every step;
@@ -43,6 +45,7 @@ from torch.fx.experimental.proxy_tensor import make_fx
 import chip_smoke
 from sd_lora_trainer_tpu_torch.config import TrainingConfig
 from sd_lora_trainer_tpu_torch.models import unet as t_unet
+from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
 from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
 from sd_lora_trainer_tpu_torch.training import optimizers as to
 from sd_lora_trainer_tpu_torch.training import step as ts
@@ -127,19 +130,23 @@ TRACED_UNET = dataclasses.replace(t_unet.TINY_SDXL_UNET_CONFIG, transformer_laye
 
 
 def _tiny_run(device, unet_opt, ti_opt, batch=2, latent=16, dtype=torch.float32, remat=True,
-              ucfg=t_unet.TINY_SDXL_UNET_CONFIG):
+              ucfg=t_unet.TINY_SDXL_UNET_CONFIG, overrides=None):
     """chip_smoke's SDXL LoRA+TI run at the tiny widths: 8 steps, the UNet's
-    LR warm-up over 4, TI frozen after half the run; `remat=False` keeps
-    every activation."""
+    and TE-LoRA's LR warm-up over 4, TI frozen after half the run, the
+    config's `overrides` (chip_smoke.OPTIONS; int8+te quantizes the frozen
+    models); `remat=False` keeps every UNet activation."""
     run = chip_smoke._build_run(ucfg, device, dtype, batch=batch, latent_hw=latent, rank=4,
-                                fuse=True)
+                                fuse=True, overrides=overrides)
     config = dataclasses.replace(run["config"], max_train_steps=8, unet_lr_warmup_steps=4,
+                                 txt_encoders_lr_warmup_steps=4,
                                  freeze_ti_after_completion_f=0.5, unet_optimizer_type=unet_opt,
                                  ti_optimizer=ti_opt)
+    if config.resolve_quantize_base() == "int8+te":
+        quantize_frozen(run["frozen"], "int8+te")
     run = chip_smoke._assemble(config, run["frozen"], run["state"].trainable, run["batch"],
                                run["generator"])
     if not remat:
-        run["sc"] = dataclasses.replace(run["sc"], remat=False, stash8="", remat_te=False)
+        run["sc"] = dataclasses.replace(run["sc"], remat=False, stash8="")
     return run
 
 
@@ -167,8 +174,25 @@ def test_traced_step_replays_like_the_eager_step(optimizer):
     """Step 1 eager, step 2 traced (its run undone), steps 2-8 replays of
     the trace with new batches in its static inputs: the losses, the
     trainables and the optimizer state equal the eager run's."""
-    runs = [_tiny_run("cpu", *OPTIMIZERS[optimizer], remat=False, ucfg=TRACED_UNET)
-            for _ in range(2)]
+    _check_replays([_tiny_run("cpu", *OPTIMIZERS[optimizer], remat=False, ucfg=TRACED_UNET)
+                    for _ in range(2)])
+
+
+@pytest.mark.parametrize("option", sorted(chip_smoke.OPTIONS))
+def test_traced_option_step_replays_like_the_eager_step(option):
+    """As above under AdamW for each option of chip_smoke's phase 12: TE-LoRA
+    (a third group whose LR warms up over steps 0-4, both encoders under
+    autograd), int8+te (int8 encoders, the conditioning recomputed in the
+    backward: torch.utils.checkpoint inside the trace) and DoRA (its norms
+    and magnitudes)."""
+    runs = [_tiny_run("cpu", "adamw", "adamw", remat=False, ucfg=TRACED_UNET,
+                      overrides=chip_smoke.OPTIONS[option]) for _ in range(2)]
+    assert runs[0]["sc"].remat_te == (option == "int8_te")
+    _check_replays(runs)
+
+
+def _check_replays(runs):
+    """Two identical runs, one eager, one traced and replayed."""
     batches = _batches(runs[0], 8)
     backend = MakeFxGraphs(runs[1]["state"])
     steps = [ts.make_train_step(runs[0]["sc"], capture=False),
