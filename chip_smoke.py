@@ -28,9 +28,9 @@ and prints no result):
    recipe at 768px: 9216 tokens at d=40, 2304 -> 3072 at 80, 576 -> 1024
    at 160) and at the rest of the JAX gate's head dims (16, 32, 36, 96,
    128, 192, 256, and 256 ragged), with its time, the plain version's and PyTorch SDPA's (forward
-   beside flash_fwd, backward beside flash_bwd), equal bits from two
-   flash_fwd launches, and the run-to-run difference of flash_bwd's dq (its
-   atomic adds);
+   beside flash_fwd, backward beside flash_bwd), and equal bits from every
+   launch on the same inputs (flash_bwd's dq, dk and dv over
+   RUN_TO_RUN_LAUNCHES);
 3. reference: the self-attention LoRA-B gradients of a small SDXL-topology
    train loss (the JAX package's tiny SDXL UNet, head dim 32) on the card
    (flash kernels) against the same computation on the
@@ -46,29 +46,32 @@ and prints no result):
    device, ops/flash_attention.py) and, in the profiled step, as the
    device ran them;
 11. graph (after phase 4): the captured step against the eager one on phase
-   4's trained state: GRAPH_STEPS steps eagerly GRAPH_EAGER_RUNS times and
-   as the capture and its replays twice, each from the same saved train
-   state; each graph loss within GRAPH_FACTOR times the eager runs' largest
-   difference at that step, and the run's update within GRAPH_FACTOR times
-   theirs (the second graph run's difference printed only), the generator's
-   state bit-equal, the same flash launches, counted and in a profiled step
-   of each; s/step, device s/step, busy share, kernels a step, capture
-   seconds and peak memory of both;
+   4's trained state, under PyTorch's deterministic settings (`Deterministic`,
+   one `[determinism]` line naming any op without a deterministic
+   implementation): GRAPH_STEPS steps eagerly GRAPH_EAGER_RUNS times and as
+   the capture and its replays twice, each from the same saved train state;
+   every run's losses, update, generator state and flash launches equal to
+   the first eager run's bit for bit (where an op warned: the spread gates,
+   each graph loss and the update within GRAPH_FACTOR times the eager runs'
+   largest difference); the same flash launches in a profiled step of each;
+   s/step, device s/step, busy share, kernels a step, capture seconds and
+   peak memory of both;
 12. options (after phase 11): the training options beyond LoRA+TI inside
    the captured step. TE-LoRA (`text_encoder_lora_optimizer` "adamw": a
    third optimizer group whose LR warms up, both text encoders under
    autograd), int8+te (`quantize_base` "int8+te": int8 text encoders, the
    conditioning recomputed in the backward) and DoRA (`use_dora`: a
    per-output norm of W0 + s·BA at every LoRA'd projection, on the int8
-   base, unfused). At the reference phase's small shape, with PyTorch's
-   deterministic algorithms: the LoRA+TI baseline and each option's
+   base, unfused). At the reference phase's small shape, under phase 11's
+   deterministic settings: the LoRA+TI baseline and each option's
    first-step gradients of every group (UNet LoRA A, B and DoRA
    magnitudes, TI rows, TE-LoRA A, B) on the card against the CPU (rel L2
    <= OPTION_GRAD_TOL, int8+te quantized alike on both sides); then, per
    option, phase 11's graph-against-eager gates over OPTION_EAGER_RUNS
-   eager runs, and the same update gate on each group alone, over the run
-   and at each step against the eager runs' difference at that step (a
-   replay must follow each group's LR schedule, not its capture's step).
+   eager runs, with each group's tensors after every step equal bit for bit
+   (a replay must follow each group's LR schedule, not its capture's step;
+   where an op warned: each group's update within the spread gates, over
+   the run and at each step).
    At full width, on
    phase 4's run recast under each option: GRAPH_WARM steps and
    OPTION_TIMED timed replays, then a profiled one; finite metrics, every
@@ -92,7 +95,9 @@ and prints no result):
    LoRA+TI on the default plan (fused qkv, int8 base) under Prodigy (UNet
    and TI, d of each group printed per step, above d0 once the first update
    has moved the tensors) and under AdamW, each saved after step 2, run to
-   step 4, restored and rerun through steps 3-4 within RESUME_TOL;
+   step 4, restored and rerun through steps 3-4 twice under deterministic
+   settings, each rerun equal to the whole run bit for bit (within
+   RESUME_TOL where an op warned);
 7. cli: the product's own path, `python -m sd_lora_trainer_tpu_torch.main
    cfg.json` in a subprocess, on a full-width SDXL checkpoint file written
    here in fp16 (random weights from a seed, `synthesize_checkpoint`) and a
@@ -131,7 +136,7 @@ and prints no result):
    the same steps on one process, twice: the first step's gradients must
    agree within PARALLEL_GRAD_TOL, every step's loss within
    PARALLEL_LOSS_TOL, and the update within PARALLEL_UPDATE_FACTOR times
-   the two one-process runs' own difference;
+   the two one-process runs' own difference (at least PARALLEL_SPREAD_FLOOR);
    every rank prints s/step, peak memory, collective calls and bytes by
    kind (> 0 on the 2-rank runs) and flash launches (> 0 for both kernels);
 9. tools (run before phase 8): the port's measurement tools as a user runs
@@ -157,7 +162,7 @@ phase's paths, the cli run, the sd15 run, the tools of phase 9 and rank 0 of eac
 a captured step's replays counted on the device where they launch; each
 kernel's every case under `cases`), the nvidia-smi
 line, and as the last line the result object. A `[time]` line after each
-phase gives the seconds since the start.
+phase gives the seconds since the start and the phase's own.
 """
 
 from __future__ import annotations
@@ -175,6 +180,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from typing import Optional
 
 import torch
@@ -230,30 +236,36 @@ KERNEL_CASES = [
 ]
 # calls per UNet pass at SDXL 1024px: 10 blocks at 4096 tokens, 60 at 1024
 MAIN_PATH_CALLS = {"sdxl_4096": 10, "sdxl_1024": 60}
+# flash_bwd's launches a case held bit-equal to the first (2 elsewhere, and
+# for flash_fwd): more at SDXL's main shape and the longest sequence, where
+# the most adders share a q tile
+RUN_TO_RUN_LAUNCHES = {"sdxl_4096": 10, "sd15_face_9216": 10}
 
 
 # a step function's first step for a batch shape runs eagerly and its second
 # is captured (training/step.py): timed steps come after these
 GRAPH_WARM = 2
 GRAPH_STEPS = 4
-# phase 11's gate: the graph run within this factor of the eager runs'
-# difference at the same step (flash_bwd's atomic dq makes two eager runs
-# differ), with a floor of GRAPH_ULPS float32 roundings of each loss
+# Phases 11 and 12 (graph against eager) and phase 6's resume run under
+# PyTorch's deterministic settings (`Deterministic`). Where no op warned that
+# it has no deterministic implementation, every run must equal the first
+# eager run bit for bit: GRAPH_EAGER_RUNS and OPTION_EAGER_RUNS eager runs
+# (which must equal each other), then the capture and its replays twice.
+GRAPH_EAGER_RUNS = 2  # phase 11, full width
+OPTION_EAGER_RUNS = 2  # phase 12, small shape
+# Where an op warned, a phase keeps the spread gates it had while flash_bwd
+# added dq by atomics (`_graph_gates`, `_option_gates`): the graph run within GRAPH_FACTOR
+# times the eager runs' largest difference at the same step, with a floor of
+# GRAPH_ULPS float32 roundings of each loss, over this many eager runs, which
+# sample the outcomes that an Adam step of a gradient near eps takes (PERF.md,
+# Findings); the second graph run is only printed then.
 GRAPH_FACTOR = 5
 GRAPH_ULPS = 8
-# eager runs of `_eager_vs_graph`: their differences, pair by pair, are the
-# spread the graph run is held to. Two eager runs launched from an idle card
-# often add dq in the same order through a step (phase 11's gate failed 4
-# of 7 runs on a correct program with two), and at the small shape a
-# group's update takes one of a few values at some steps (an Adam step of a
-# gradient near eps, which the atomics tip), the eager runs as often as the
-# graph: int8+te's in about 2 runs of 5, TE-LoRA's at its fourth step in
-# about 1 of 25, and three eager runs all missed what the graph took
-# (PERF.md, Findings). More eager runs sample those outcomes; the second
-# graph run is only printed, since a fault that only replays have would
-# widen its difference.
-GRAPH_EAGER_RUNS = 4  # phase 11, full width
-OPTION_EAGER_RUNS = 10  # phase 12, small shape
+SPREAD_EAGER_RUNS = {"graph": 4, "options": 10}
+# cuBLAS is deterministic only with a fixed workspace, which it reads when
+# CUDA starts: set before any card work (the phases' shakedowns import this
+# module first too)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 
 def check(cond: bool, msg: str) -> None:
@@ -263,6 +275,64 @@ def check(cond: bool, msg: str) -> None:
 
 def log(*args) -> None:
     print(*args, flush=True)
+
+
+class Deterministic:
+    """PyTorch's deterministic settings over a phase: cuDNN's deterministic
+    algorithms and no benchmark, no TF32, `torch.use_deterministic_algorithms`
+    in warn-only mode (CUBLAS_WORKSPACE_CONFIG is set at import). `ops()`
+    names each op that has warned so far that it has no deterministic
+    implementation; on exit one `[determinism]` line names them all, and any
+    other warning is shown as it would have been."""
+
+    FLAGS = ((torch.backends.cuda.matmul, "allow_tf32", False),
+             (torch.backends.cudnn, "allow_tf32", False),
+             (torch.backends.cudnn, "deterministic", True),
+             (torch.backends.cudnn, "benchmark", False))
+
+    def __init__(self, phase: str):
+        self.phase = phase
+
+    def __enter__(self):
+        self._saved = [getattr(mod, name) for mod, name, _ in self.FLAGS]
+        self._algorithms = (torch.are_deterministic_algorithms_enabled(),
+                            torch.is_deterministic_algorithms_warn_only_enabled())
+        for mod, name, value in self.FLAGS:
+            setattr(mod, name, value)
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        self._catch = warnings.catch_warnings(record=True)
+        self._caught = self._catch.__enter__()
+        warnings.simplefilter("always")
+        return self
+
+    @staticmethod
+    def _op(message: str) -> Optional[str]:
+        if "does not have a deterministic implementation" in message:
+            return message.split(" does not have a deterministic implementation")[0]
+        if "CUBLAS_WORKSPACE_CONFIG" in message:
+            return "cuBLAS (CUBLAS_WORKSPACE_CONFIG unset)"
+        return None
+
+    def count(self) -> int:
+        """The warnings caught so far: `ops(count())` later names only the
+        ops that warned after this call."""
+        return len(self._caught)
+
+    def ops(self, since: int = 0) -> list:
+        return sorted({op for w in self._caught[since:] if (op := self._op(str(w.message)))})
+
+    def __exit__(self, *exc):
+        ops = self.ops()
+        self._catch.__exit__(*exc)
+        for (mod, name, _), value in zip(self.FLAGS, self._saved):
+            setattr(mod, name, value)
+        torch.use_deterministic_algorithms(self._algorithms[0], warn_only=self._algorithms[1])
+        for w in self._caught:
+            if not self._op(str(w.message)):
+                warnings.showwarning(w.message, w.category, w.filename, w.lineno)
+        log(f"[determinism] {self.phase}: ops without a deterministic implementation: "
+            f"{', '.join(ops) if ops else 'none'}")
+        return False
 
 
 def cuda_ms(fn, iters: int = 10, warmup: int = 2) -> float:
@@ -376,23 +446,17 @@ def phase_kernels():
                             KERNEL_TOL * float(r.float().abs().max()))
             for e, t in zip(errs, tols):
                 check(e <= t, f"{name} {case}: max_abs_err {e:.3e} > tol {t:.3e}")
-            tol, extra = tols[0], ""
-            if name == "flash_fwd":
-                # no atomics: a second launch on the same inputs gives the same bits
+            tol = tols[0]
+            # neither kernel adds in a varying order (flash_bwd's dq adds take
+            # turns, csrc/flash_bwd.cu): every launch on the same inputs gives
+            # the bits of the first
+            n = RUN_TO_RUN_LAUNCHES.get(case, 2) if name == "flash_bwd" else 2
+            for _ in range(n - 1):
                 again = kern()
-                same = all(torch.equal(x, y) for x, y in zip(got, again))
-                check(same, f"flash_fwd {case}: two launches differ")
-                extra = " run_to_run=bitwise"
-            if name == "flash_bwd":
-                # dq's fp32 atomic adds land in another order each launch; the
-                # difference may flip a bf16 rounding, and must stay within one
-                # bf16 step of the largest dq (2^-7 of it, 0.39 of the tolerance)
-                nondet = float((kern()[0].float() - got[0].float()).abs().max())
-                ulp = 2.0**-7 * float(want[0].float().abs().max())
-                check(nondet <= ulp, f"flash_bwd {case}: dq differs by {nondet:.3e} between "
-                      f"two launches (one bf16 step {ulp:.3e})")
-                summary[name]["dq_nondet"] = max(summary[name].get("dq_nondet", 0.0), nondet)
-                extra = f" dq_run_to_run={nondet:.2e}"
+                diff = [float((x.float() - y.float()).abs().max()) for x, y in zip(got, again)]
+                check(all(torch.equal(x, y) for x, y in zip(got, again)),
+                      f"{name} {case}: two launches differ, max |diff| a output {diff}")
+            extra = f" run_to_run=bitwise ({n} launches)"
             ms, plain_ms = cuda_ms(kern), cuda_ms(plain, iters=3, warmup=1)
             flops, nbytes = _work(name, b, h, lp, valid, d)
             bound, by = _bound_ms(flops, nbytes)
@@ -404,7 +468,8 @@ def phase_kernels():
                              ("library_ms", lib), ("flops", flops), ("bytes", nbytes)):
                 s[key] += n_calls * val
             s["cases"].append({"case": case, "shape": [b, h, lp, d], "valid": valid or lp,
-                               "max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms,
+                               "max_abs_err": max(errs), "run_to_run_launches": n,
+                               "ms": ms, "plain_ms": plain_ms,
                                "bound_ms": bound, "bound_by": by, "library_ms": lib})
             line.append(f"{name} err={max(errs):.2e} (tol {tol:.2e}) ms={ms:.3f} "
                         f"plain_ms={plain_ms:.3f} bound_ms={bound:.4f} ({by}){extra}")
@@ -441,8 +506,9 @@ def phase_reference():
     - CUDA kernels vs CPU plain attention (gate 2e-2: the kernels round fp32
       operands to bf16 for the tensor cores);
     - on the card, the named plan keeping flash_out/flash_lse vs full remat
-      (gate 1e-3: the same kernels, dq's atomics aside), with half the
-      forward launches;
+      (gate 1e-3: the same kernels; under the default algorithms cuDNN's
+      weight gradients and the index backward add in a varying order), with
+      half the forward launches;
     - on the card, an int8 base vs the float32 one under the resolved
       default plan (gate 3e-2, the JAX package's int8 bound,
       tests/test_quant.py).
@@ -766,12 +832,15 @@ def _eager_pairs(out) -> list:
     return list(itertools.combinations([n for n in out if n.startswith("eager")], 2))
 
 
-def _eager_vs_graph(run, eager_runs: int, per_step: bool = False):
+def _eager_vs_graph(run, eager_runs: int, per_step: bool = False, spread_runs: int = 0,
+                    nondeterministic=lambda: []):
     """From one saved train state of `run`: GRAPH_STEPS eager steps,
     `eager_runs` times ("eager", "eager_2", ...), then as many graph steps,
     the capture and its replays, twice ("graph", "graph_2"; the
     second run replays the same capture; the graph's key took its eager
-    first step from the same state beforehand). Returns the two step
+    first step from the same state beforehand); then, if
+    `nondeterministic()` names an op, more eager runs up to `spread_runs`
+    (the spread gates' sample). Returns the two step
     functions, each run's record (step seconds, losses, flash launches,
     peak GiB, the groups' tensors at its end and, with `per_step`, after
     each step, the generator's state) and the groups' tensors at the
@@ -792,8 +861,10 @@ def _eager_vs_graph(run, eager_runs: int, per_step: bool = False):
         start = _group_params(state)
         ck.restore_train_state(path, state)
         steps["graph"](state, batch, frozen)  # the key's eager first step
-        names = ["eager"] + [f"eager_{i}" for i in range(2, eager_runs + 1)]
-        for name in names + ["graph", "graph_2"]:
+        names = ["eager"] + [f"eager_{i}" for i in range(2, eager_runs + 1)] + ["graph", "graph_2"]
+        for name in names:
+            if name == "graph_2" and nondeterministic():
+                names += [f"eager_{i}" for i in range(eager_runs + 1, spread_runs + 1)]
             step = steps[name.split("_")[0]]
             ck.restore_train_state(path, state)
             torch.cuda.synchronize()
@@ -865,15 +936,43 @@ def _graph_gates(out, start, what: str) -> None:
           f"{what}: flash launches: " + ", ".join(f"{n} {r['launches']}" for n, r in out.items()))
 
 
+def _exact_gates(out, start, what: str) -> None:
+    """The gates of an `_eager_vs_graph` record under deterministic settings
+    where no op warned: every run (the other eager runs, the graph's two)
+    equals the first eager run bit for bit in each step's loss, each
+    group's tensors after each step (with `per_step`) and at the end, the
+    generator's state and the flash launches."""
+    eager = out["eager"]
+
+    def differ(a, b) -> dict:  # group -> max |a - b| where they differ
+        return {g: max(float((x.float() - y.float()).abs().max()) for x, y in zip(a[g], b[g]))
+                for g in b if not all(torch.equal(x, y) for x, y in zip(a[g], b[g]))}
+
+    for name, r in out.items():
+        if name == "eager":
+            continue
+        check(r["losses"] == eager["losses"],
+              f"{what}: {name}'s losses {r['losses']} differ from eager's {eager['losses']}")
+        for k, (got, want) in enumerate(zip(r["after"], eager["after"])):
+            bad = differ(got, want)
+            check(not bad, f"{what}: after step {k + 1}, {name} differs from eager in {bad}")
+        bad = differ(r["final"], eager["final"])
+        check(not bad, f"{what}: {name}'s update differs from eager's in {bad}")
+        check(torch.equal(r["generator"], eager["generator"]),
+              f"{what}: the generator's state after {name}'s steps differs from eager's")
+        check(r["launches"] == eager["launches"],
+              f"{what}: flash launches {name} {r['launches']}, eager {eager['launches']}")
+
+
 def phase_graph(run) -> dict:
     """Phase 11: the step as one captured graph against the eager step, on
-    phase 4's trained full-width SDXL LoRA+TI run (the "auto" plan). From
-    one saved train state: GRAPH_STEPS eager steps, GRAPH_EAGER_RUNS times,
-    then as many graph steps, the capture and its replays, twice
-    (`_eager_vs_graph`). Gates (`_graph_gates`): each graph step's loss and
-    the run's update within GRAPH_FACTOR times the eager runs' spread, the
-    generator's state bit-equal after the steps, the same flash launches
-    (the replays' counted on the device). Then one profiled
+    phase 4's trained full-width SDXL LoRA+TI run (the "auto" plan), under
+    deterministic settings (`Deterministic`). From one saved train state:
+    GRAPH_STEPS eager steps, GRAPH_EAGER_RUNS times, then as many graph
+    steps, the capture and its replays, twice (`_eager_vs_graph`). Gates:
+    where no op warned, every run equal to the first eager one bit for bit
+    (`_exact_gates`); else the spread gates over SPREAD_EAGER_RUNS["graph"]
+    eager runs (`_graph_gates`). Then one profiled
     step of each: s/step, device s/step, busy share, kernels a step, capture
     seconds and peak memory, and the flash kernels the device ran, which
     must be a step's share of the launches counted."""
@@ -881,14 +980,18 @@ def phase_graph(run) -> dict:
 
     state, batch, frozen = run["state"], run["batch"], run["frozen"]
     bs = run["config"].train_batch_size
-    steps, out, start = _eager_vs_graph(run, GRAPH_EAGER_RUNS)
-    for name in ("eager", "graph"):  # one more step each, profiled
-        wall, table = profile_device(lambda: steps[name](state, batch, frozen),
-                                     torch.device("cuda"))
-        timed = out[name]["steps_s"][1:]  # the graph's first is its capture
-        mean = sum(timed) / len(timed)
-        out[name].update(s_per_step=mean, device_s=table.device_s, kernels=table.kernels,
-                         busy_share=table.device_s / mean, traced=table.flash_launches)
+    with Deterministic("graph") as det:
+        steps, out, start = _eager_vs_graph(run, GRAPH_EAGER_RUNS,
+                                            spread_runs=SPREAD_EAGER_RUNS["graph"],
+                                            nondeterministic=det.ops)
+        for name in ("eager", "graph"):  # one more step each, profiled
+            wall, table = profile_device(lambda: steps[name](state, batch, frozen),
+                                         torch.device("cuda"))
+            timed = out[name]["steps_s"][1:]  # the graph's first is its capture
+            mean = sum(timed) / len(timed)
+            out[name].update(s_per_step=mean, device_s=table.device_s, kernels=table.kernels,
+                             busy_share=table.device_s / mean, traced=table.flash_launches)
+        exact = not det.ops()
     eager, graph = out["eager"], out["graph"]
     capture = _check_graph(steps["graph"], "graph phase")
     for name in ("eager", "graph"):
@@ -907,20 +1010,24 @@ def phase_graph(run) -> dict:
     def diffs(a, b):
         return [f"{abs(x - y):.2e}" for x, y in zip(out[a]["losses"], out[b]["losses"])]
 
-    log(f"[graph] graph vs eager: losses {diffs('graph', 'eager')}, eager runs "
+    log(f"[graph] graph vs eager ({'bit for bit' if exact else 'the spread gates'}): losses "
+        f"{diffs('graph', 'eager')}, eager runs "
         + ", ".join(f"{a}-{b} {diffs(a, b)}" for a, b in _eager_pairs(out))
-        + f", the two graph runs (printed only) {diffs('graph_2', 'graph')}; the "
+        + f", the two graph runs {diffs('graph_2', 'graph')}; the "
         f"{GRAPH_STEPS}-step update rel L2 {rel_graph:.2e}, the eager runs' spread "
-        f"{rel_spread:.2e} (gate {GRAPH_FACTOR}x), the two graph runs "
+        f"{rel_spread:.2e}, the two graph runs "
         f"{_rel_l2(_flat(out['graph_2']['final']), _flat(graph['final']), _flat(start)):.2e}; "
         f"generator state equal {torch.equal(graph['generator'], eager['generator'])}")
-    _graph_gates(out, start, "graph phase")
+    if exact:
+        _exact_gates(out, start, "graph phase")
+    else:
+        _graph_gates(out, start, "graph phase")
     per_step = {k: v / GRAPH_STEPS for k, v in eager["launches"].items()}
     check(graph["traced"] == eager["traced"] == per_step,
           f"flash kernels in a profiled step: graph {graph['traced']}, eager {eager['traced']}, "
           f"counted a step {per_step}")
     return {name: {k: v for k, v in r.items() if k not in ("final", "after", "generator")}
-            for name, r in out.items()} | {"capture": capture}
+            for name, r in out.items()} | {"capture": capture, "exact": exact}
 
 
 # phase `options`: the training options beyond LoRA+TI that the CLI offers,
@@ -1018,37 +1125,29 @@ def _option_gates(rows, what: str) -> None:
 
 def _options_small() -> dict:
     """Each option at the reference phase's small shape (JAX's tiny SDXL
-    UNet, head dim 32: flash at 1024 and 256 tokens): the first step's
-    gradients of every group on the card against the CPU, on the same
-    weights, batch and draws (int8+te quantizes both sides' encoders alike),
-    then, but for the LoRA+TI baseline, the graph against the eager step
-    (`_option_gates`). The card runs take PyTorch's deterministic
-    algorithms (cuDNN's, the index backward's): what then differs between
-    two runs is flash_bwd's atomic dq alone, the difference the gates are
-    made for. With the default algorithms the two eager runs' 4-step UNet
-    updates differed by 7.5e-4 (TE-LoRA) and 1.2e-5 (int8+te) in one run,
-    too spread for a ratio gate (PERF.md, Findings)."""
-    saved = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-             torch.backends.cudnn.deterministic, torch.are_deterministic_algorithms_enabled())
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cudnn.deterministic = True
-    torch.use_deterministic_algorithms(True, warn_only=True)
-    try:
-        return _options_small_runs()
-    finally:
-        (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
-         torch.backends.cudnn.deterministic) = saved[:3]
-        torch.use_deterministic_algorithms(saved[3])
+    UNet, head dim 32: flash at 1024 and 256 tokens), under deterministic
+    settings (`Deterministic`): the first step's gradients of every group on
+    the card against the CPU, on the same weights, batch and draws (int8+te
+    quantizes both sides' encoders alike), then, but for the LoRA+TI
+    baseline, the graph against the eager step: bit for bit where no op of
+    the option's runs warned (`_exact_gates`), else the spread gates over
+    SPREAD_EAGER_RUNS["options"] eager runs (`_graph_gates`,
+    `_option_gates`). With PyTorch's default algorithms two eager runs'
+    4-step UNet updates differed by 7.5e-4 (TE-LoRA) and 1.2e-5 (int8+te)
+    in one run (cuDNN's weight gradients, the index backward; PERF.md,
+    Findings)."""
+    with Deterministic("options (small shape)") as det:
+        return _options_small_runs(det)
 
 
-def _options_small_runs() -> dict:
+def _options_small_runs(det) -> dict:
     from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
     from sd_lora_trainer_tpu_torch.models.unet import TINY_SDXL_UNET_CONFIG
     from sd_lora_trainer_tpu_torch.training.optimizers import current_lrs
 
     out = {}
     for name, overrides in (("lora_ti", {}),) + tuple(OPTIONS.items()):
+        since = det.count()  # the warnings of this option's runs
         cpu = _build_run(TINY_SDXL_UNET_CONFIG, "cpu", torch.float32, batch=2, latent_hw=64,
                          rank=4, fuse=True, overrides=overrides)
         cuda = _moved(cpu, "cuda")
@@ -1073,20 +1172,27 @@ def _options_small_runs() -> dict:
               f"options {name}: the card's gradients differ from the CPU's: {rel}")
         row = {"grad_rel": rel}
         if name != "lora_ti":
-            steps, record, start = _eager_vs_graph(cuda, OPTION_EAGER_RUNS, per_step=True)
+            steps, record, start = _eager_vs_graph(
+                cuda, OPTION_EAGER_RUNS, per_step=True, spread_runs=SPREAD_EAGER_RUNS["options"],
+                nondeterministic=lambda: det.ops(since))
             _check_graph(steps["graph"], f"options small {name}")
             row["groups"] = _option_rows(record, start)
+            row["exact"] = not det.ops(since)
             e, gr = record["eager"]["losses"], record["graph"]["losses"]
             lrs = [current_lrs(cuda["config"], k) for k in range(GRAPH_STEPS)]
-            log(f"[options] small {name}: graph vs eager losses "
+            log(f"[options] small {name} ({'bit for bit' if row['exact'] else 'the spread gates'}"
+                f"; ops without a deterministic implementation: {det.ops(since)}): graph vs eager losses "
                 f"{[f'{abs(x - y):.2e}' for x, y in zip(e, gr)]} (the eager runs' spread "
                 f"{[f'{d:.2e}' for d in _loss_spreads(record)]}); per group: "
                 + json.dumps({grp: {k: (f"{v:.2e}" if isinstance(v, float) else
                                         [f"{x:.2e}" for x in v]) for k, v in r.items()}
                               for grp, r in row["groups"].items()})
                 + f"; scheduled LRs a step {[{k: f'{v:.3g}' for k, v in lr.items()} for lr in lrs]}")
-            _graph_gates(record, start, f"options small {name}")
-            _option_gates(row["groups"], f"options small {name}")
+            if row["exact"]:
+                _exact_gates(record, start, f"options small {name}")
+            else:
+                _graph_gates(record, start, f"options small {name}")
+                _option_gates(row["groups"], f"options small {name}")
         out[name] = row
         del cpu, cuda
         gc.collect()
@@ -1284,17 +1390,18 @@ FF_CONFIG = os.path.join(ROOT, "train_configs", "full_finetuning_example.json")
 OPTIM_STEPS = 4  # per full-finetune optimizer: the eager first step, the capture, 2 timed
 # the optim phase's paths, each a run of the main path in `launches_by_path`
 OPTIM_PATHS = ("ff_adamw", "ff_adamw8bit", "prodigy", "lora_adamw")
-# resume on the card: |resumed - whole| after steps 3-4, relative L2 over the
-# steps 3-4 update. The gradients differ between two launches of the same
-# step: flash_bwd adds dq with fp32 atomics in another order each launch (up
-# to one bf16 step of the largest dq, checked in the kernels phase; <= 9.8e-4
-# measured on the H100), and so do torch's index backward of the TI rows and
-# cuDNN's weight gradients. Adam and Prodigy divide each gradient by its own
-# running size, so an element whose gradient is near zero may step the
-# other way: the first card run measured 2.5e-2 for Prodigy. The same steps
-# rerun twice from one restored state measure that spread alone, and both
-# stay under the gate; a state restored without its optimizer state or
-# its generator moved the update by 0.32-0.62 (tiny SDXL on the CPU)
+# resume on the card, under deterministic settings (`Deterministic`): the
+# run restored from the step-2 state equals the whole run after steps 3-4 bit
+# for bit, and so does a second rerun from the same file. Where an op warned
+# that it has no deterministic implementation, the reruns are held instead
+# to |resumed - whole| <= RESUME_TOL relative L2 over the steps 3-4 update:
+# the spread that atomic adds in varying order gave (flash_bwd's dq before it
+# added in a fixed order, torch's index backward of the TI rows and cuDNN's
+# weight gradients under the default algorithms): Adam and Prodigy divide
+# each gradient by its own running size, so an element whose gradient is
+# near zero may step the other way (2.5e-2 for Prodigy on the first card
+# run); a state restored without its optimizer state or its generator moved
+# the update by 0.32-0.62 (tiny SDXL on the CPU)
 RESUME_TOL = 0.1
 # Prodigy's d stays d0 through the first update and grows as the tensors
 # travel (on tiny SDXL LoRA+TI the TI group left d0 at step 5, the UNet at 9)
@@ -1493,8 +1600,14 @@ def _optim_full_finetune(base, optimizer_type: str) -> dict:
 
 def _optim_resume(config, frozen, trainable, batch, gen, label: str) -> dict:
     """Steps 1-4 of a LoRA+TI run, the train state saved after step 2; then
-    a template restored from it reruns steps 3-4. Returns the numbers and
-    the first run's flash launches."""
+    a template restored from it reruns steps 3-4, twice; all under
+    deterministic settings (`Deterministic`). Returns the numbers and the
+    first run's flash launches."""
+    with Deterministic(f"optim resume ({label})") as det:
+        return _optim_resume_runs(config, frozen, trainable, batch, gen, label, det)
+
+
+def _optim_resume_runs(config, frozen, trainable, batch, gen, label: str, det) -> dict:
     from sd_lora_trainer_tpu_torch import checkpoint as ck
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
     from sd_lora_trainer_tpu_torch.training import step as ts
@@ -1554,6 +1667,9 @@ def _optim_resume(config, frozen, trainable, batch, gen, label: str) -> dict:
         _check_graph(train_step, label, keys=3)  # the run's state and the two templates
         rel_resume, rel_again = rel(resumed, whole), rel(again, resumed)
         max_abs = max(float((b - w).abs().max()) for b, w in zip(resumed, whole))
+        equal = (all(torch.equal(b, w) for b, w in zip(resumed, whole))
+                 and all(torch.equal(a, b) for a, b in zip(again, resumed)))
+        exact = not det.ops()
         del resumed, again
         for _ in range(PRODIGY_STEPS - 4 if prodigy else 0):  # Prodigy's d needs more steps
             train_step(state, run["batch"], frozen)
@@ -1572,11 +1688,15 @@ def _optim_resume(config, frozen, trainable, batch, gen, label: str) -> dict:
             + f"; d_numerator at step {len(ds)} {numerators}")
     log(f"[optim] {label} resume: restored the step-2 state bit for bit (twice); steps 3-4: "
         f"resumed vs whole rel L2 {rel_resume:.2e}, max |diff| {max_abs:.2e}; the same steps "
-        f"rerun twice from the same restored state: rel L2 {rel_again:.2e} (gate "
-        f"{RESUME_TOL:.0e} for both)")
-    check(rel_resume <= RESUME_TOL and rel_again <= RESUME_TOL,
-          f"{label}: the resumed run differs from the whole run ({rel_resume:.2e}, rerun "
-          f"{rel_again:.2e})")
+        f"rerun twice from the same restored state: rel L2 {rel_again:.2e}; both equal bit for "
+        f"bit {equal} (gate: " + ("bit for bit" if exact else f"{RESUME_TOL:.0e} for both") + ")")
+    if exact:
+        check(equal, f"{label}: the resumed run differs from the whole run ({rel_resume:.2e}, "
+              f"max |diff| {max_abs:.2e}; rerun {rel_again:.2e})")
+    else:
+        check(rel_resume <= RESUME_TOL and rel_again <= RESUME_TOL,
+              f"{label}: the resumed run differs from the whole run ({rel_resume:.2e}, rerun "
+              f"{rel_again:.2e})")
     check(all(v > 0 for v in launches.values()), f"{label}: flash launches {launches}")
     if prodigy:
         # the first update leaves d at d0 (p = p0 makes its numerator 0); the
@@ -1590,7 +1710,7 @@ def _optim_resume(config, frozen, trainable, batch, gen, label: str) -> dict:
               f"{label}: d {ds[-1]} did not grow past d0 in {len(ds)} steps")
     return {"s_per_step": mean, "steps_s": secs, "losses": losses, "d": ds,
             "resume_rel": rel_resume, "rerun_rel": rel_again, "resume_max_abs": max_abs,
-            "launches": launches}
+            "resume_exact": exact, "launches": launches}
 
 
 def phase_optim() -> dict:
@@ -1961,7 +2081,7 @@ PARALLEL_LORA_STEPS = 3
 PARALLEL_FF_STEPS = 2  # per optimizer, AdamW then AdamW8bit
 # the first step's gradients, parallel against one process (same params and
 # draws): the reference phase's card-vs-CPU gate (bf16 kernels, another
-# order of the sums over rows and heads, dq's atomics)
+# order of the sums over rows and heads, torch's atomic backward ops)
 PARALLEL_GRAD_TOL = 2e-2
 # every step's loss, parallel against one process, relative
 PARALLEL_LOSS_TOL = 1e-2
@@ -1978,6 +2098,13 @@ PARALLEL_LOSS_TOL = 1e-2
 # unrelated to the reference reads about 1.4 (two independent sign
 # patterns), over 10 times the spread.
 PARALLEL_UPDATE_FACTOR = 5
+# The spread the update gate scales by is at least the smallest two
+# identical one-process runs read while flash_bwd added dq by atomics in a
+# varying order (0.071 on the H100). Now that flash_bwd adds dq in a fixed
+# order the two runs can be equal bit for bit (they were, on the H100),
+# which would hold a parallel run's own rounding differences, amplified by
+# Adam's first steps to 0.05-0.28 (dp2, tp2, fsdp2 on the H100), to 0.
+PARALLEL_SPREAD_FLOOR = 0.07
 # the train state's gather under fsdp (what save_train_state writes, every
 # rank entering): the card's memory above what it held before, GiB. The
 # gather holds one whole tensor at a time on a card (SDXL's largest
@@ -2147,8 +2274,8 @@ def parallel_rank(run: str) -> int:
         dist.barrier()
         if rank == 0:
             # the same steps on one process, twice: the reference, and the
-            # spread of two identical runs (the kernels' atomics and torch's
-            # nondeterministic backward ops, which Adam's first steps amplify)
+            # spread of two identical runs (torch's nondeterministic backward
+            # ops, which Adam's first steps amplify)
             start = ([t.detach() for t in _leaves(frozen.unet_params)
                       if t.is_floating_point()] if full else
                      [t.detach() for t in _leaves(init) if t.is_floating_point()])
@@ -2228,7 +2355,8 @@ def phase_parallel() -> dict:
                        f"{e['sign_frac']:.3e} of them (two one-process runs' "
                        f"{e['control_sign_frac']:.3e}), update rel L2 "
                        f"{e['update_rel']:.2e} (gate {PARALLEL_UPDATE_FACTOR} x two "
-                       f"one-process runs' {e['control_rel']:.2e})"
+                       f"one-process runs' {e['control_rel']:.2e}, at least "
+                       f"{PARALLEL_SPREAD_FLOOR})"
                        if "update_rel" in e else "")
                 log(f"[parallel] {run} rank {r['rank']}/{r['world']} {opt}: {mode}, "
                     f"{r['mesh']}; steps {[round(x, 3) for x in e['steps_s']]} s "
@@ -2260,9 +2388,11 @@ def phase_parallel() -> dict:
                     worst = max(abs(a - b) / abs(b) for a, b in zip(e["losses"], e["ref_losses"]))
                     check(worst <= PARALLEL_LOSS_TOL,
                           f"{run} {opt}: losses {e['losses']} against {e['ref_losses']}")
-                    check(e["update_rel"] <= PARALLEL_UPDATE_FACTOR * e["control_rel"],
+                    spread = max(e["control_rel"], PARALLEL_SPREAD_FLOOR)
+                    check(e["update_rel"] <= PARALLEL_UPDATE_FACTOR * spread,
                           f"{run} {opt}: update rel L2 {e['update_rel']:.2e} against two "
-                          f"one-process runs' {e['control_rel']:.2e}")
+                          f"one-process runs' {e['control_rel']:.2e} (floor "
+                          f"{PARALLEL_SPREAD_FLOOR})")
         log(f"[parallel] {run}: {n} rank(s) over {backend} in {wall:.1f} s (launch, build and "
             f"steps), build {ranks[0]['build_s']:.1f} s")
         out[run] = {"wall_s": wall, "ranks": ranks,
@@ -2274,7 +2404,8 @@ def phase_parallel() -> dict:
 def phase_offload(run) -> dict:
     """The LoRA+TI step under `offload:flash_out*,flash_lse*` against
     `save:flash_out*,flash_lse*` on the trained full-width run: the LoRA
-    gradients of one loss (gate 1e-3, the reference phase's: dq's atomics),
+    gradients of one loss (gate 1e-3, the reference phase's: torch's atomic
+    backward ops),
     the kept tensors pinned host copies, the peak below save:'s; s/step of
     each."""
     from sd_lora_trainer_tpu_torch.ops import checkpoint_names as cn
@@ -2338,8 +2469,10 @@ def phase_offload(run) -> dict:
         f"max(1e-3, 2x that))")
     check(sv["offloaded"] == 0 and o["offloaded"] > 0 and o["pinned"],
           f"offload kept {o['offloaded']} tensors (pinned {o['pinned']}), save {sv['offloaded']}")
-    # the kernels' atomics make two passes of one plan differ by about the
-    # reference phase's 1e-3 at full width (8.3e-4 in a shakedown)
+    # atomic adds in varying order make two passes of one plan differ by about
+    # the reference phase's 1e-3 at full width (8.3e-4 in a shakedown, when
+    # flash_bwd's dq still added by atomics; cuDNN's weight gradients and the
+    # index backward still do under the default algorithms)
     check(rel <= max(1e-3, 2 * spread), f"offload's gradients differ from save:'s ({rel:.2e}, "
           f"two save: passes {spread:.2e})")
     check(o["peak_gib"] < sv["peak_gib"],
@@ -2543,11 +2676,14 @@ def main() -> int:
     if args.parallel_rank:
         return parallel_rank(args.parallel_rank)
     t_start = time.perf_counter()
+    t_lap = [t_start]
 
     def lap(phase: str) -> None:
         gc.collect()
         torch.cuda.empty_cache()
-        log(f"[time] {phase} done at {time.perf_counter() - t_start:.1f} s")
+        now = time.perf_counter()
+        log(f"[time] {phase} done at {now - t_start:.1f} s ({now - t_lap[0]:.1f} s)")
+        t_lap[0] = now
 
     smi = phase_device()
     summary = phase_kernels()
@@ -2600,8 +2736,7 @@ def main() -> int:
             "max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": bound, "bound_by": by,
             "library_ms": s["library_ms"], "library_call": LIBRARY_CALLS[name],
-            "timing": TIMING,
-            **({"dq_run_to_run_max_abs": s["dq_nondet"]} if "dq_nondet" in s else {}),
+            "timing": TIMING, "run_to_run": "bitwise",
             "cases": s["cases"],
         })
     log(json.dumps({"kernels": entries}))

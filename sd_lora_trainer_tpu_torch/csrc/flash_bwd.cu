@@ -13,12 +13,13 @@
 // bound it from L = 256 up.
 //
 // Design (the FA3 backward on sm_90a):
-// - One CTA per (key tile, head, batch), L on blockIdx.x. A producer
-//   warpgroup (one thread working, its registers given to the consumers
-//   with setmaxnreg when there are two) loads K and V once by TMA and
-//   streams the Q, dO, lse and di tiles of each 64-row q step through a
-//   2-stage mbarrier ring, so the loads of step i+1 overlap the products of
-//   step i.
+// - One CTA per (key tile, head, batch) on a 1-d grid in bwd_block's order
+//   (see the dQ turns below). A producer warpgroup (one thread loading, one
+//   or two writing dQ, its registers given to the consumers with setmaxnreg
+//   when there are two) loads K and V once by TMA and streams the Q, dO,
+//   lse and di tiles of each 64-row q step through a 2-stage mbarrier ring,
+//   so the loads of step i+1 overlap the products of step i (one stage
+//   above DP = 208, where the dQ buffer takes the room).
 // - Three tiers by padded head dim DP (BwdConfig), by what the dK and dV
 //   accumulators (DP registers a thread for 64 keys) leave room for:
 //   * DP <= 96: two consumer warpgroups of 64 keys each (128 a CTA), with K
@@ -41,12 +42,37 @@
 //   read transposed through the descriptor; dS^T goes to shared memory as
 //   bf16 and dQ_partial = dS K reads it transposed. Within a step the waits
 //   are staggered: P is computed while dP^T runs, and dS while dV runs.
-// - dQ_partial is added to an fp32 accumulator of [B, H, L, round_up(d, 16)]
-//   floats straight from registers by 16-byte vector atomic adds (resolved in
-//   L2), each 64-row tile in the accumulator's register order
-//   (dq_acc_index); a second small kernel scales it and casts it into dq.
-//   The order of those adds varies from run to run, so dq does too (in its
-//   last bits); dK and dV are written once per CTA and are deterministic.
+// - dQ_partial goes from registers into an fp32 buffer of the q tile in
+//   shared memory (two warpgroups of one key tile: the first stores its
+//   part, the second adds its own to it), laid out in the order of the
+//   accumulator's registers (dq_acc_index); a writer thread of the
+//   producer warpgroup adds the buffer into an fp32 accumulator of [B, H, L,
+//   round_up(d, 16)] floats with one bulk add of the copy engine (resolved
+//   in L2), and a second small kernel scales it and casts it into dq.
+// - The adds into a q tile come in a fixed order, so dq has the same bits on
+//   every launch, as the reference's dQ kernel gives by summing the key
+//   blocks in order in scratch. The CTAs that reach a q tile (q_tile_live)
+//   add in the order of their key tiles; the tile's turn counter (sem, zeroed by
+//   the caller) counts the CTAs done. The dq writer (dq_writer) spins until
+//   it reads the number of live CTAs before its own (live_before; the spin
+//   holds the watchdog trap, which only a producer warp may), adds the
+//   buffer (the first CTA stores it instead, so the accumulator needs no
+//   zeroing), waits for the add to complete and releases the counter. The
+//   consumers only wait for a free buffer (two where shared memory allows),
+//   so a late turn stalls them only when the writer is a buffer behind.
+//   CTAs of one head that start together take turns one after the other (a
+//   turn passes from CTA to CTA in a few microseconds), so the grid's order
+//   (bwd_block) runs over key tile 0 of `group` heads, then key tile 1 of
+//   the same heads, and so on: blocks that start together take one key tile
+//   each of other heads, and a first wave about a quarter of each head's
+//   (group = 4 * SMs / key tiles, at most every head). With all key tiles of
+//   a head on consecutive blocks, as a 3-d grid gives them, every wave paid
+//   for a whole head's chain of turns (PERF.md, Findings).
+// - Deadlock freedom rests on one assumption, as in FlashAttention-3's
+//   deterministic backward: the hardware dispatches CTAs in the order of
+//   their linear block index, so the CTAs a writer waits on (lower key
+//   tiles of its head: lower blockIdx.x in bwd_block's order) are resident
+//   or done.
 // - q tiles where the segment mask removes every (query, key) pair of the CTA
 //   are skipped by producer and consumers alike.
 
@@ -54,7 +80,8 @@
 #include "hopper_common.cuh"
 
 struct BwdParams {
-  float* dq_acc;  // fp32 [B, H, L, DP], zeroed by the caller; see dq_acc_index
+  float* dq_acc;  // fp32 [B, H, L, DP]; see dq_acc_index
+  int* dq_sem;    // int32 [B, H, L / 64], zeroed by the caller: adders done per q tile
   void* dk;
   void* dv;
   FlashStrides sdk, sdv;
@@ -62,7 +89,14 @@ struct BwdParams {
   const float* di;
   int heads, len, head_dim, valid_len;
   float sm_scale;
+  int batch, group;  // bwd_block's order: `group` heads a run of blocks
 };
+
+// Shared memory of the backward for tiles of these sizes, with `stages`
+// stages of the ring and `bufs` dQ buffers.
+constexpr int bwd_smem_bytes(int kv, int qt, int ds, int dq, int bm, int stages, int bufs) {
+  return 2 * kv + stages * (2 * qt + 2 * bm * 4) + ds + bufs * dq + (1 + 2 * stages + 2 * bufs) * 8;
+}
 
 template <int DP>
 struct BwdConfig {
@@ -72,7 +106,7 @@ struct BwdConfig {
   // consumer warpgroups: two of 64 keys each up to DP = 96, one to 160, two
   // sharing 64 keys in the split
   static constexpr int NWG = DP > 96 && !SPLIT ? 1 : 2;
-  static constexpr int BN = SPLIT ? 64 : 64 * NWG, BM = 64, STAGES = 2;
+  static constexpr int BN = SPLIT ? 64 : 64 * NWG, BM = 64;
   // K and V as wgmma A fragments in registers (DP / 2 a thread)
   static constexpr bool KV_REGS = DP <= 80;
   // the split's columns of warpgroup 0 (warpgroup 1 has the rest): a multiple
@@ -85,18 +119,48 @@ struct BwdConfig {
   // a [64][64] bf16 tile: dS^T of one warpgroup; in the split, P^T (the
   // first) and dS^T (the second)
   static constexpr int DS_BYTES = 64 * BM * 2;
+  static constexpr int DQ_BYTES = BM * DP * 4;  // a q tile's fp32 dQ part
+  static constexpr int SMEM_MAX = 232448 - 1024;  // - base alignment
+  // a 2-stage ring and two dQ buffers where they fit (DP <= 160); one
+  // buffer to DP = 208; above, one stage
+  static constexpr int STAGES =
+      bwd_smem_bytes(KV_BYTES, QT_BYTES, NWG * DS_BYTES, DQ_BYTES, BM, 2, 1) <= SMEM_MAX ? 2 : 1;
+  static constexpr int DQ_BUFS =
+      bwd_smem_bytes(KV_BYTES, QT_BYTES, NWG * DS_BYTES, DQ_BYTES, BM, STAGES, 2) <= SMEM_MAX
+          ? 2
+          : 1;
   static constexpr int OFF_K = 0;
   static constexpr int OFF_V = OFF_K + KV_BYTES;
   static constexpr int OFF_Q = OFF_V + KV_BYTES;
   static constexpr int OFF_DO = OFF_Q + STAGES * QT_BYTES;
   static constexpr int OFF_DS = OFF_DO + STAGES * QT_BYTES;
-  static constexpr int OFF_LSE = OFF_DS + NWG * DS_BYTES;
+  static constexpr int OFF_DQ = OFF_DS + NWG * DS_BYTES;
+  static constexpr int OFF_LSE = OFF_DQ + DQ_BUFS * DQ_BYTES;
   static constexpr int OFF_DI = OFF_LSE + STAGES * BM * 4;
   static constexpr int OFF_BAR = OFF_DI + STAGES * BM * 4;
-  static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES) * 8;
-  static_assert(SMEM + 1024 <= 232448, "shared memory");  // + base alignment
+  static constexpr int SMEM = OFF_BAR + (1 + 2 * STAGES + 2 * DQ_BUFS) * 8;
+  static_assert(SMEM == bwd_smem_bytes(KV_BYTES, QT_BYTES, NWG * DS_BYTES, DQ_BYTES, BM, STAGES,
+                                       DQ_BUFS) && SMEM <= SMEM_MAX, "shared memory");
   static_assert(!SPLIT || (SPLIT_COLS <= 128 && DP - SPLIT_COLS > 0), "split columns");
+  // named barrier of the key tiers' two warpgroups: warpgroup 0's dQ part is
+  // in the buffer
+  static constexpr int DQ_COMBINE = 4;
 };
+
+// The (key tile, head, batch) of this CTA: blockIdx.x runs over runs of
+// `group` blocks, one key tile each of `group` consecutive (batch, head)
+// pairs, all key tiles of those pairs before the next `group` (the last run
+// of pairs may be shorter).
+template <int DP>
+__device__ __forceinline__ void bwd_block(const BwdParams& p, int* kt, int* h, int* b) {
+  const int nkt = p.len / BwdConfig<DP>::BN, pairs = p.batch * p.heads;
+  const int lin = blockIdx.x, first = lin / (p.group * nkt) * p.group;
+  const int width = min(p.group, pairs - first), r = lin - first * nkt;
+  const int bh = first + r % width;
+  *kt = r / width;
+  *h = bh % p.heads;
+  *b = bh / p.heads;
+}
 
 // What the consumer warpgroups of one CTA share.
 struct BwdCta {
@@ -104,6 +168,8 @@ struct BwdCta {
   uint64_t* bar_kv;
   uint64_t* full;
   uint64_t* empty;
+  uint64_t* dq_full;   // a dQ buffer holds the q tile's part
+  uint64_t* dq_empty;  // the dq writer has read it
   long long row_base;  // (b * heads + h) * L: the rows of lse, di and dq_acc
   int k0, nq, b, h;
 };
@@ -115,17 +181,67 @@ __device__ __forceinline__ bool q_tile_live(int q0, int k0, int vl) {
   return vl == 0 || (k0 < vl && q0 < vl) || (k0 + BN > vl && q0 + BM > vl);
 }
 
+// The live key tiles of width BN before key tile kt for the q tile at q0,
+// in closed form: q_tile_live holds for every key tile when the q tile has
+// real and pad rows (or there is no mask), for those with a real key when it
+// has real rows only, and for those with a pad key when it has pad rows only.
+template <int BN, int BM>
+__device__ __forceinline__ int live_before(int q0, int kt, int vl) {
+  const bool real = q0 < vl, pad = q0 + BM > vl;
+  if (vl == 0 || (real && pad)) return kt;
+  if (real) return min(kt, (vl + BN - 1) / BN);
+  return max(0, kt - vl / BN);
+}
+
 // acc, columns [N0, N0 + W) of a 64-row q tile in a consumer warpgroup's
-// accumulator layout, += into dq_acc at row0 (dq_acc_index): each warp adds
-// 512 contiguous bytes with 16-byte vector atomics
-template <int DP, int N0, int W>
-__device__ __forceinline__ void add_dq(const BwdParams& p, long long row0, int tid,
-                                       const float* acc) {
-  float* dst = p.dq_acc + row0 * DP + N0 * 64 + tid * 4;
+// accumulator layout, into its dQ buffer (thread tid's view: buf + 4 tid) in
+// the order of dq_acc_index, stored or (`add`) added to what is there: each
+// warp writes 512 contiguous bytes a step.
+template <int N0, int W>
+__device__ __forceinline__ void put_dq(float* buf, const float* acc, bool add) {
+  float4* dst = reinterpret_cast<float4*>(buf + N0 * 64);
 #pragma unroll
   for (int j = 0; j < W / 8; ++j) {
-    atomicAdd(reinterpret_cast<float4*>(dst + j * 512),
-              make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]));
+    float4 v = make_float4(acc[4 * j], acc[4 * j + 1], acc[4 * j + 2], acc[4 * j + 3]);
+    if (add) {
+      const float4 o = dst[j * 128];
+      v = make_float4(o.x + v.x, o.y + v.y, o.z + v.z, o.w + v.w);
+    }
+    dst[j * 128] = v;
+  }
+}
+
+// One thread of warp 1 + `slot` of the producer warpgroup: the CTA's dQ
+// part of each live q tile that dQ buffer `slot` takes (every DQ_BUFS-th),
+// from the buffer into dq_acc in the tile's turn (see the header), in the
+// consumers' order of q tiles. One writer a buffer, so that one tile's wait
+// for its turn and for its add to complete overlaps the other's.
+template <int DP>
+__device__ __forceinline__ void dq_writer(const BwdParams& p, const BwdCta& cta, int kt,
+                                          int slot) {
+  using C = BwdConfig<DP>;
+  constexpr int BN = C::BN, BM = C::BM, NB = C::DQ_BUFS;
+  int* sem = p.dq_sem + cta.row_base / BM;
+  float* acc = p.dq_acc + cta.row_base * DP;
+  const unsigned char* buf = cta.smem + C::OFF_DQ + slot * C::DQ_BYTES;
+  const int vl = p.valid_len;
+  int it = 0;
+  for (int qi = 0; qi < cta.nq; ++qi) {
+    const int q0 = qi * BM;
+    if (!q_tile_live<BN, BM>(q0, kt * BN, vl)) continue;
+    if (it++ % NB != slot) continue;
+    const int before = live_before<BN, BM>(q0, kt, vl);
+    wait_counter(sem + qi, before);
+    fence_proxy_async_global();
+    mbar_wait<true>(&cta.dq_full[slot], ((it - 1) / NB) & 1);
+    if (before == 0) {
+      bulk_store(acc + (long long)q0 * DP, buf, C::DQ_BYTES);
+    } else {
+      bulk_add_f32(acc + (long long)q0 * DP, buf, C::DQ_BYTES);
+    }
+    bulk_wait_all();
+    mbar_arrive(&cta.dq_empty[slot]);
+    release_counter(sem + qi, 1);
   }
 }
 
@@ -355,17 +471,30 @@ __device__ __forceinline__ void bwd_consumer_keys(const BwdCta& cta, const BwdPa
     fence_proxy_async();
     named_barrier(1 + w, 128);
 
-    // dQ_partial = dS K_w, one column piece at a time, each added once done
+    // dQ_partial = dS K_w, one column piece at a time, into the q tile's dQ
+    // buffer: warpgroup 0 stores its part, warpgroup 1 then adds its own
+    const int slot = it % C::DQ_BUFS;
+    float* dq_buf = reinterpret_cast<float*>(smem + C::OFF_DQ + slot * C::DQ_BYTES) + tid * 4;
+    if (w == 0) mbar_wait(&cta.dq_empty[slot], ((it / C::DQ_BUFS) & 1) ^ 1);
     Pieces<0, DP>::run([&](auto n0c, auto wc) {
       constexpr int N0 = decltype(n0c)::value, W = decltype(wc)::value;
       float acc[W / 2];
       wgmma_fence();
       issue_dq(n0c, wc, acc);
       wgmma_commit();
+      if constexpr (C::NWG == 2 && N0 == 0) {
+        if (w == 1) named_barrier(C::DQ_COMBINE, 256);  // warpgroup 0's part is in
+      }
       wgmma_wait<0>();
       fence_regs<W / 2>(acc);
-      add_dq<DP, N0, W>(p, cta.row_base + q0, tid, acc);
+      put_dq<N0, W>(dq_buf, acc, w == 1);
     });
+    if (C::NWG == 2 && w == 0) {
+      named_barrier_arrive(C::DQ_COMBINE, 256);
+    } else {
+      fence_proxy_async();  // the buffer is read by the copy engine
+      mbar_arrive(&cta.dq_full[slot]);
+    }
     fence_regs<BM / 4>(pf);  // A fragments stay put until their wgmmas are done
     fence_regs<BM / 4>(df);
     mbar_arrive(&cta.empty[s]);  // every product reading this stage has completed
@@ -493,7 +622,11 @@ __device__ __forceinline__ void bwd_consumer_split(const BwdCta& cta, const BwdP
     wgmma_commit();
 
     // dQ_partial[:, N0 : N0 + NW] = dS K (dS^T read MN-major, K MN-major),
-    // one column piece at a time, each added once done
+    // one column piece at a time, into the q tile's dQ buffer (the two roles'
+    // columns are disjoint)
+    const int slot = it % C::DQ_BUFS;
+    float* dq_buf = reinterpret_cast<float*>(smem + C::OFF_DQ + slot * C::DQ_BYTES) + tid * 4;
+    mbar_wait(&cta.dq_empty[slot], ((it / C::DQ_BUFS) & 1) ^ 1);
     Pieces<N0, NW>::run([&](auto n0c, auto wc) {
       constexpr int PN = decltype(n0c)::value, W = decltype(wc)::value;
       float dq[W / 2];
@@ -508,8 +641,10 @@ __device__ __forceinline__ void bwd_consumer_split(const BwdCta& cta, const BwdP
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs<W / 2>(dq);
-      add_dq<DP, PN, W>(p, cta.row_base + q0, tid, dq);
+      put_dq<PN, W>(dq_buf, dq, false);
     });
+    fence_proxy_async();  // the buffer is read by the copy engine
+    mbar_arrive(&cta.dq_full[slot]);
     fence_regs<BM / 4>(f);
     // every product reading this stage and both handover tiles has completed
     // in both warpgroups before either writes a tile again
@@ -551,10 +686,13 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
   uint64_t* bar_kv = reinterpret_cast<uint64_t*>(smem + C::OFF_BAR);
   uint64_t* full = bar_kv + 1;
   uint64_t* empty = full + S;
+  uint64_t* dq_full = empty + S;
+  uint64_t* dq_empty = dq_full + C::DQ_BUFS;
   float* s_lse = reinterpret_cast<float*>(smem + C::OFF_LSE);
   float* s_di = reinterpret_cast<float*>(smem + C::OFF_DI);
 
-  const int kt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+  int kt, h, b;
+  bwd_block<DP>(p, &kt, &h, &b);
   const int L = p.len, vl = p.valid_len, k0 = kt * BN;
   const long long row_base = ((long long)b * p.heads + h) * L;
   if (threadIdx.x == 0) {
@@ -563,13 +701,21 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], NWG * 128);
     }
+    for (int s = 0; s < C::DQ_BUFS; ++s) {
+      // the threads that write a dQ buffer last: the split's both roles, the
+      // key tiers' last warpgroup
+      mbar_init(&dq_full[s], C::SPLIT ? 256 : 128);
+      mbar_init(&dq_empty[s], 1);
+    }
     fence_barrier_init();
   }
   __syncthreads();
   const int nq = L / BM;
+  const BwdCta cta{smem, bar_kv, full, empty, dq_full, dq_empty, row_base, k0, nq, b, h};
 
-  if (threadIdx.x >= 128 * NWG) {  // producer warpgroup: one thread loads
+  if (threadIdx.x >= 128 * NWG) {  // producer warpgroup: one thread loads, one a buffer writes dq
     if constexpr (NWG > 1) setmaxnreg_dec<24>();
+    const int pw = (threadIdx.x - 128 * NWG) / 32;  // the producer's warp
     if (threadIdx.x == 128 * NWG) {
       mbar_expect_tx(bar_kv, 2 * C::KV_BYTES);
 #pragma unroll
@@ -597,12 +743,13 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
       // the watchdog of the consumers (their waits do not trap): stay until
       // they have released every stage of the ring
       for (int j = it; j < it + S; ++j) mbar_wait<true>(&empty[j % S], ((j / S) & 1) ^ 1);
+    } else if (threadIdx.x % 32 == 0 && pw >= 1 && pw <= C::DQ_BUFS) {
+      dq_writer<DP>(p, cta, kt, pw - 1);
     }
     return;
   }
 
   if constexpr (NWG > 1) setmaxnreg_inc<240>();
-  const BwdCta cta{smem, bar_kv, full, empty, row_base, k0, nq, b, h};
   if constexpr (C::SPLIT) {
     if (threadIdx.x < 128) {
       bwd_consumer_split<T, DP, 0>(cta, p);
@@ -617,8 +764,8 @@ __global__ void __launch_bounds__(BwdConfig<DP>::THREADS, 1)
 // Index of (row r, column c) of a 64-row q tile in its block of 64 * DP
 // floats of dq_acc: the order in which a consumer warpgroup's wgmma
 // accumulator holds the tile, 8 columns (one n8 tile, 512 floats) after
-// another whatever the column pieces, so that each warp adds a piece with
-// 16-byte atomics on 512 contiguous bytes (add_dq).
+// another whatever the column pieces, so that each warp writes a piece into
+// the dQ buffer with 16-byte stores on 512 contiguous bytes (put_dq).
 __device__ __forceinline__ int dq_acc_index(int r, int c) {
   const int tid = (r >> 4) * 32 + (r & 7) * 4 + ((c & 7) >> 1);
   const int e = ((r >> 3) & 1) * 2 + (c & 1);
@@ -656,8 +803,10 @@ static int launch_bwd(const FlashArgs& a, cudaStream_t stream) {
       make_bhld_map(&tdo, a.dout, a.batch, a.heads, a.len, a.head_dim, a.sdo.b, a.sdo.h, a.sdo.l,
                     C::CW, C::BM);
   if (!ok) return (int)cudaErrorInvalidValue;
+  if (a.acc == nullptr || a.sem == nullptr) return (int)cudaErrorInvalidValue;
   BwdParams p;
   p.dq_acc = a.acc;
+  p.dq_sem = a.sem;
   p.dk = a.out_a;
   p.dv = a.out_b;
   p.sdk = a.sa;
@@ -669,12 +818,22 @@ static int launch_bwd(const FlashArgs& a, cudaStream_t stream) {
   p.head_dim = a.head_dim;
   p.valid_len = a.valid_len;
   p.sm_scale = a.sm_scale;
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const int nkt = a.len / C::BN;
+  p.batch = a.batch;
+  p.group = max(1, min(a.batch * a.heads, 4 * sms / nkt));
   const int smem = C::SMEM + 1024;  // + alignment of the base to 1024 bytes
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, DP>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid(a.len / C::BN, a.heads, a.batch);
-  flash_bwd_kernel<T, DP><<<grid, C::THREADS, smem, stream>>>(tq, tk, tv, tdo, p);
+  flash_bwd_kernel<T, DP><<<(unsigned)(nkt * a.heads * a.batch), C::THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, p);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const long long pairs = (long long)a.batch * a.heads * a.len * (a.head_dim / 2);

@@ -8,7 +8,8 @@
 //     8 elements and every base pointer is 16-byte aligned (the Python wrapper
 //     checks this).
 //   lse, di: fp32 [B, H, L], contiguous; acc (backward): fp32
-//     [B, H, L, round_up(d, 16)], contiguous and zeroed.
+//     [B, H, L, round_up(d, 16)], contiguous, any contents; sem (backward):
+//     int32 [B, H, L / 64], zeroed: one turn counter per 64-row q tile.
 //   L is a multiple of 128, the rows both kernels tile at; d is a multiple of
 //     8 from 8 to 256, and the kernels are instantiated for every padded head
 //     dim DP = round_up(d, 16) from 16 to 256 (FLASH_HEAD_DIMS); TMA reads
@@ -49,6 +50,7 @@ struct FlashArgs {
   void* out_c;  // bwd: dq
   FlashStrides sc;
   float* acc;  // bwd: the fp32 dq accumulator
+  int* sem;    // bwd: the turn counters of the dq adds
 };
 
 #define FLASH_LOG2E 1.4426950408889634f

@@ -147,6 +147,37 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// Contiguous bytes (a multiple of 16, 16-byte aligned) from shared memory to
+// global memory by the copy engine: stored, or added into fp32 values there
+// (each value one add, rounded as an fp32 add); in this thread's bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_add_f32(float* dst, const void* src, uint32_t bytes) {
+  asm volatile("cp.reduce.async.bulk.global.shared::cta.bulk_group.add.f32 [%0], [%1], %2;\n" ::
+                   "l"(dst),
+               "r"(smem_u32(src)), "r"(bytes)
+               : "memory");
+}
+
+// Wait until this thread's bulk stores and adds have completed, their writes
+// to global memory included.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile(
+      "cp.async.bulk.commit_group;\n"
+      "cp.async.bulk.wait_group 0;\n" ::
+          : "memory");
+}
+
+// Order this thread's earlier accesses of global memory in the generic proxy
+// (an acquire) before its later ones in the async proxy (a bulk add).
+__device__ __forceinline__ void fence_proxy_async_global() {
+  asm volatile("fence.proxy.async.global;\n" ::: "memory");
+}
+
 // Make this thread's generic-proxy shared-memory writes visible to wgmma and
 // the copy engine (the async proxy).
 __device__ __forceinline__ void fence_proxy_async() {
@@ -156,6 +187,40 @@ __device__ __forceinline__ void fence_proxy_async() {
 // Barrier over `threads` threads (a multiple of 32) on hardware barrier `id`.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Arrive at named barrier `id` without waiting for it (the other side waits
+// with named_barrier); the caller's earlier memory accesses are performed
+// relative to the waiting threads once the barrier completes.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: counters in global memory shared by the CTAs of a grid
+// ---------------------------------------------------------------------------
+
+// Spin until *counter == value, with acquire semantics at GPU scope. A wait
+// that lasts seconds traps (see mbar_wait): call it from a producer warp only.
+__device__ __forceinline__ void wait_counter(const int* counter, int value) {
+  uint32_t spins = 0;
+  int now;
+  do {
+    if (++spins == (1u << 26)) __trap();
+    asm volatile("ld.global.acquire.gpu.b32 %0, [%1];\n" : "=r"(now) : "l"(counter) : "memory");
+  } while (now != value);
+}
+
+// *counter += value, released at GPU scope: a fence, then a relaxed add, as
+// CUTLASS's GenericBarrier does, so that the fence also releases the writes
+// of the threads the caller synchronized with through a barrier before it.
+// A thread that reads the new value with wait_counter sees them all.
+__device__ __forceinline__ void release_counter(int* counter, int value) {
+  asm volatile(
+      "fence.acq_rel.gpu;\n"
+      "red.relaxed.gpu.global.add.s32 [%0], %1;\n" ::"l"(counter),
+      "r"(value)
+      : "memory");
 }
 
 template <int REGS>

@@ -251,8 +251,8 @@ def _strides(x: torch.Tensor) -> FlashStrides:
     return FlashStrides(*x.stride()[:3])
 
 
-def _launch(name: str, q, k, v, *, dout=None, out_a, out_b=None, out_c=None, acc=None, lse,
-            di=None, sm_scale: float, valid_len: int, dtype: torch.dtype) -> None:
+def _launch(name: str, q, k, v, *, dout=None, out_a, out_b=None, out_c=None, acc=None, sem=None,
+            lse, di=None, sm_scale: float, valid_len: int, dtype: torch.dtype) -> None:
     b, h, length, d = q.shape
     none = FlashStrides(0, 0, 0)
     args = FlashArgs(
@@ -268,6 +268,7 @@ def _launch(name: str, q, k, v, *, dout=None, out_a, out_b=None, out_c=None, acc
         out_c=out_c.data_ptr() if out_c is not None else None,
         sc=_strides(out_c) if out_c is not None else none,
         acc=acc.data_ptr() if acc is not None else None,
+        sem=sem.data_ptr() if sem is not None else None,
     )
     fn = getattr(kernel_lib(name), name)
     rc = fn(ctypes.byref(args), ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
@@ -313,8 +314,9 @@ def _check_residuals(q, do, lse, di):
 def flash_bwd(q, k, v, do, lse, di, sm_scale: float, valid_len: int = 0):
     """(dq, dk, dv) [B, H, L, d] in q's dtype, one fused kernel launch.
 
-    dq is summed across key tiles in an fp32 buffer (zeroed here) by atomic
-    adds, so its last bits vary from run to run.
+    dq is summed across key tiles in an fp32 buffer in a fixed order (each
+    64-row q tile's adds take turns on a counter zeroed here), so every
+    launch on the same inputs gives the same bits, as dk and dv do.
     """
     if _on_cpu(q, k, v, do, lse, di):
         return flash_bwd_ref(q, k, v, do, lse, di, sm_scale, valid_len)
@@ -328,9 +330,12 @@ def _flash_bwd_launch(q, k, v, do, lse, di, sm_scale: float, valid_len: int):
     out_dtype = q.dtype
     dq, dk, dv = _empty_like_heads(q), _empty_like_heads(k), _empty_like_heads(v)
     q, k, v, do = (_kernel_operand(n, x) for n, x in (("q", q), ("k", k), ("v", v), ("do", do)))
-    acc = torch.zeros(b, h, length, _round_up(d, 16), dtype=torch.float32, device=q.device)
-    _launch("flash_bwd", q, k, v, dout=do, out_a=dk, out_b=dv, out_c=dq, acc=acc, lse=lse,
-            di=di, sm_scale=sm_scale, valid_len=valid_len, dtype=out_dtype)
+    # the kernel's first add into each q tile stores, so acc needs no zeroing;
+    # sem counts, per 64-row q tile, the key tiles whose part is in: from zero
+    acc = torch.empty(b, h, length, _round_up(d, 16), dtype=torch.float32, device=q.device)
+    sem = torch.zeros(b * h * (length // 64), dtype=torch.int32, device=q.device)
+    _launch("flash_bwd", q, k, v, dout=do, out_a=dk, out_b=dv, out_c=dq, acc=acc, sem=sem,
+            lse=lse, di=di, sm_scale=sm_scale, valid_len=valid_len, dtype=out_dtype)
     return dq, dk, dv
 
 

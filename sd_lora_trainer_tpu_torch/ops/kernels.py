@@ -74,6 +74,7 @@ class FlashArgs(ctypes.Structure):
         ("out_c", ctypes.c_void_p),
         ("sc", FlashStrides),
         ("acc", ctypes.c_void_p),
+        ("sem", ctypes.c_void_p),
     ]
 
 

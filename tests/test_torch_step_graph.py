@@ -27,8 +27,9 @@ so it runs on a machine that has only PyTorch:
   by each replay, the host step mirror, one graph per batch shape, the
   eager reasons;
 - `cuda`-marked tests (skipped without a card): the graph step against the
-  eager step on the card (losses per step within 1e-3 relative: flash_bwd's
-  dq sums with atomics in a varying order; the generator's state bit-equal;
+  eager step on the card (losses per step within 1e-3 relative: under
+  PyTorch's default algorithms cuDNN's weight gradients and the index
+  backward add in a varying order; the generator's state bit-equal;
   the same launch counts), and two buckets' graphs sharing a memory pool,
   replayed in another order than their capture.
 """
@@ -51,7 +52,7 @@ from sd_lora_trainer_tpu_torch.training import optimizers as to
 from sd_lora_trainer_tpu_torch.training import step as ts
 
 FX_TOL = 1e-6  # of each tensor's largest value: the replay runs the eager step's ops
-CUDA_LOSS_TOL = 1e-3  # relative, graph vs eager on the card (flash_bwd's atomic dq)
+CUDA_LOSS_TOL = 1e-3  # relative, graph vs eager on the card (torch's atomic backward ops)
 
 OPTIMIZERS = {"adamw": ("adamw", "adamw"), "prodigy": ("prodigy", "prodigy"),
               "adamw8bit": ("AdamW8bit", "adamw")}
