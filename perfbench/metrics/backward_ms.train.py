@@ -1,0 +1,11 @@
+"""Model, backward and recompute: the device ms a step of the step's backward
+phase (every micro-batch's backward, remat's recompute in it), read inside
+the captured graph: the program's `TrainStep.phase_ms()` of a step built
+with `phases=True`, the mean over the probe's replays
+(perfbench/probe.py)."""
+
+from perfbench import probe
+
+
+def read(m):
+    return probe.phase_ms(m, "backward")

@@ -1,0 +1,10 @@
+"""Model, text encoders: the device ms a step of the step's conditioning
+phase (the latent sample and the text encoders), read inside the captured
+graph: the program's `TrainStep.phase_ms()` of a step built with
+`phases=True`, the mean over the probe's replays (perfbench/probe.py)."""
+
+from perfbench import probe
+
+
+def read(m):
+    return probe.phase_ms(m, "conditioning")

@@ -31,6 +31,7 @@ from sd_lora_trainer_tpu_torch.models.clip import CLIPTextConfig, clip_text_forw
 from sd_lora_trainer_tpu_torch.models.lora import merge_lora
 from sd_lora_trainer_tpu_torch.models.unet import UNetConfig, unet_forward
 from sd_lora_trainer_tpu_torch.models.vae import VAEConfig, downsample_factor, vae_decode_batched
+from sd_lora_trainer_tpu_torch.utils import profiling
 from sd_lora_trainer_tpu_torch.utils.utils import fix_prompt, replace_in_string
 from sd_lora_trainer_tpu_torch.utils.val_prompts import val_prompts
 
@@ -272,7 +273,12 @@ def render_images(
     """Render the validation images into `lora_path` as
     img_{train_step:04d}_{i}.jpg and return their prompts. The first prompt
     is "" (style) or "<concept>"; the rest are drawn from the mode's bank.
-    `latents` [n_imgs, h/8, w/8, 4] replaces the initial normal draws."""
+    `latents` [n_imgs, h/8, w/8, 4] replaces the initial normal draws.
+
+    Host spans (utils/profiling.py) name the call's parts:
+    `sdlt.render.merge` (the adapters into the weights), `encode` (the
+    prompts), `denoise` (the sampling loop), `decode` (the VAE and the
+    images' copy to the host) and `write` (the JPEG files)."""
     from PIL import Image
 
     random.seed(seed)
@@ -286,15 +292,16 @@ def render_images(
     if prompt_modifier:
         prompts = [prompt_modifier.format(p) for p in prompts]
 
-    unet_params = pipe.unet_params
-    if unet_lora is not None:
-        unet_params = merge_lora(unet_params, unet_lora, scale=lora_scale)
-    te1_params, te2_params = pipe.te1_params, pipe.te2_params
-    if te_loras:
-        if te_loras[0] is not None:
-            te1_params = merge_lora(te1_params, te_loras[0], scale=lora_scale)
-        if len(te_loras) > 1 and te_loras[1] is not None and te2_params is not None:
-            te2_params = merge_lora(te2_params, te_loras[1], scale=lora_scale)
+    with profiling.span("render.merge"):
+        unet_params = pipe.unet_params
+        if unet_lora is not None:
+            unet_params = merge_lora(unet_params, unet_lora, scale=lora_scale)
+        te1_params, te2_params = pipe.te1_params, pipe.te2_params
+        if te_loras:
+            if te_loras[0] is not None:
+                te1_params = merge_lora(te1_params, te_loras[0], scale=lora_scale)
+            if len(te_loras) > 1 and te_loras[1] is not None and te2_params is not None:
+                te2_params = merge_lora(te2_params, te_loras[1], scale=lora_scale)
     pipe = dataclasses.replace(pipe, unet_params=unet_params, te1_params=te1_params,
                                te2_params=te2_params)
 
@@ -304,30 +311,34 @@ def render_images(
     dev = pipe.device
     gen = torch.Generator(device=dev).manual_seed(seed)
     cs, pcs, draws = [], [], []
-    uc, puc, _ = _encode(pipe, [NEGATIVE_PROMPT], (w, h))  # shared across prompts
-    add_ids = None
-    for prompt in prompts:
-        c, uc, pc, puc, add_ids = encode_prompt_advanced(
-            pipe, lora_path, prompt, NEGATIVE_PROMPT, lora_scale, (w, h),
-            token_scale=0 if disable_ti else None, concept_mode=concept_mode,
-            negative_cache=(uc, puc),
-        )
-        cs.append(c)
-        pcs.append(pc)
-        draws.append(torch.randn(1, lh, lw, 4, generator=gen, device=dev))
-    n = len(prompts)
-    c = torch.cat(cs)
-    uc = uc.repeat(n, 1, 1)
-    pc = None if pcs[0] is None else torch.cat(pcs)
-    puc = None if puc is None else puc.repeat(n, 1)
-    add_ids = None if add_ids is None else add_ids.repeat(n, 1)
+    with profiling.span("render.encode"):
+        uc, puc, _ = _encode(pipe, [NEGATIVE_PROMPT], (w, h))  # shared across prompts
+        add_ids = None
+        for prompt in prompts:
+            c, uc, pc, puc, add_ids = encode_prompt_advanced(
+                pipe, lora_path, prompt, NEGATIVE_PROMPT, lora_scale, (w, h),
+                token_scale=0 if disable_ti else None, concept_mode=concept_mode,
+                negative_cache=(uc, puc),
+            )
+            cs.append(c)
+            pcs.append(pc)
+            draws.append(torch.randn(1, lh, lw, 4, generator=gen, device=dev))
+        n = len(prompts)
+        c = torch.cat(cs)
+        uc = uc.repeat(n, 1, 1)
+        pc = None if pcs[0] is None else torch.cat(pcs)
+        puc = None if puc is None else puc.repeat(n, 1)
+        add_ids = None if add_ids is None else add_ids.repeat(n, 1)
     if latents is None:
         latents = torch.cat(draws)
-    z = _sample(pipe, pipe.unet_params, latents.to(dev), c, uc, pc, puc, add_ids, n_steps, 8.0,
-                compute_dtype=torch.float32 if precision == "fp32" else torch.bfloat16,
-                use_flash=precision != "fp32")
-    imgs = decode_images(pipe, z)
-    for i in range(n):
-        Image.fromarray(imgs[i]).save(os.path.join(lora_path, f"img_{train_step:04d}_{i}.jpg"),
-                                      quality=95)
+    with profiling.span("render.denoise"):
+        z = _sample(pipe, pipe.unet_params, latents.to(dev), c, uc, pc, puc, add_ids, n_steps,
+                    8.0, compute_dtype=torch.float32 if precision == "fp32" else torch.bfloat16,
+                    use_flash=precision != "fp32")
+    with profiling.span("render.decode"):
+        imgs = decode_images(pipe, z)
+    with profiling.span("render.write"):
+        for i in range(n):
+            Image.fromarray(imgs[i]).save(os.path.join(lora_path, f"img_{train_step:04d}_{i}.jpg"),
+                                          quality=95)
     return prompts

@@ -438,7 +438,10 @@ def train(config: TrainingConfig):
     def step_fn_for(res):
         ratio = daam_img_ratio(res, config.train_img_size)
         if ratio not in step_fns:
-            step_fns[ratio] = make_train_step(dataclasses.replace(sc, daam_img_ratio=ratio))
+            # debug arms the step's phase marks: device ms by phase in the summary
+            armed = {"phases": True} if config.debug else {}
+            step_fns[ratio] = make_train_step(dataclasses.replace(sc, daam_img_ratio=ratio),
+                                              **armed)
         return step_fns[ratio]
 
     steps_per_call = max(int(config.steps_per_call), 1)
@@ -755,6 +758,8 @@ def train(config: TrainingConfig):
         "world": world, "rank": rank, "sharding": layout[0] if layout else None,
         "collectives": sharding.collective_stats(),
     })
+    if config.debug:
+        timings["phase_ms"] = [getattr(fn, "phase_ms", lambda: None)() for fn in step_fns.values()]
     print(SUMMARY_TAG + " " + json.dumps(timings), flush=True)
     print("Training job complete, saving outputs...", flush=True)
     return config, output_save_dir

@@ -27,6 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from sd_lora_trainer_tpu_torch.ops.checkpoint_names import checkpoint_name
+from sd_lora_trainer_tpu_torch.utils import profiling
 
 
 def _lora_scale(lora: dict) -> float:
@@ -40,22 +41,23 @@ def _apply_lora_dense(p: dict, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor
 
     The delta runs in the activation dtype; scale = alpha / rank.
     """
-    lora = p["lora"]
-    scale = _lora_scale(lora)
-    tp = p.get("tp")
-    a, b = lora["a"], lora["b"]
-    if tp is not None:
+    with profiling.layer("lora"):
+        lora = p["lora"]
+        scale = _lora_scale(lora)
+        tp = p.get("tp")
+        a, b = lora["a"], lora["b"]
+        if tp is not None:
+            if "magnitude" in lora:
+                raise ValueError("DoRA needs each output's whole weight norm; it does not run on "
+                                 "a tensor-parallel split (use sharding_mode 'dp')")
+            a, b = tp.lora_a(a), tp.lora_b(b)
+        delta = F.linear(F.linear(x, a.to(x.dtype)), b.to(x.dtype)) * scale
         if "magnitude" in lora:
-            raise ValueError("DoRA needs each output's whole weight norm; it does not run on "
-                             "a tensor-parallel split (use sharding_mode 'dp')")
-        a, b = tp.lora_a(a), tp.lora_b(b)
-    delta = F.linear(F.linear(x, a.to(x.dtype)), b.to(x.dtype)) * scale
-    if "magnitude" in lora:
-        # DoRA (arXiv:2402.09353): W' = m * (W0 + s·BA) / ||W0 + s·BA|| per output
-        w = p["weight"].float() + (lora["b"].float() @ lora["a"].float()) * scale
-        m = lora["magnitude"] / torch.clamp(torch.linalg.norm(w, dim=1), min=1e-6)
-        return ((y + delta).float() * m).to(x.dtype)
-    return y + delta
+            # DoRA (arXiv:2402.09353): W' = m * (W0 + s·BA) / ||W0 + s·BA|| per output
+            w = p["weight"].float() + (lora["b"].float() @ lora["a"].float()) * scale
+            m = lora["magnitude"] / torch.clamp(torch.linalg.norm(w, dim=1), min=1e-6)
+            return ((y + delta).float() * m).to(x.dtype)
+        return y + delta
 
 
 def dense(p: dict, x: torch.Tensor, name: Optional[str] = None) -> torch.Tensor:
@@ -112,9 +114,10 @@ def conv2d(p: dict, x: torch.Tensor, stride: int = 1, padding="SAME") -> torch.T
     y = _conv_nhwc(x, w, stride, padding)
     if "lora" in p:
         lora = p["lora"]
-        ya = _conv_nhwc(x, lora["a"].to(x.dtype), stride, padding)
-        yb = _conv_nhwc(ya, lora["b"].to(x.dtype), 1, 0)
-        y = y + yb * _lora_scale(lora)
+        with profiling.layer("lora"):
+            ya = _conv_nhwc(x, lora["a"].to(x.dtype), stride, padding)
+            yb = _conv_nhwc(ya, lora["b"].to(x.dtype), 1, 0)
+            y = y + yb * _lora_scale(lora)
     if "bias" in p:
         y = y + p["bias"].to(x.dtype)
     return y
@@ -123,16 +126,18 @@ def conv2d(p: dict, x: torch.Tensor, stride: int = 1, padding="SAME") -> torch.T
 def group_norm(p: dict, x: torch.Tensor, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
     """GroupNorm over the channel (last) axis of NHWC, fp32 statistics."""
     b, h, w, c = x.shape
-    xf = x.float().reshape(b, h * w, groups, c // groups)
-    var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
-    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
-    return (xf * p["weight"].float() + p["bias"].float()).to(x.dtype)
+    with profiling.layer("norm"):
+        xf = x.float().reshape(b, h * w, groups, c // groups)
+        var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
+        xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
+        return (xf * p["weight"].float() + p["bias"].float()).to(x.dtype)
 
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """LayerNorm over the last axis, fp32 statistics."""
-    out = F.layer_norm(x.float(), (x.shape[-1],), p["weight"].float(), p["bias"].float(), eps)
-    return out.to(x.dtype)
+    with profiling.layer("norm"):
+        out = F.layer_norm(x.float(), (x.shape[-1],), p["weight"].float(), p["bias"].float(), eps)
+        return out.to(x.dtype)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

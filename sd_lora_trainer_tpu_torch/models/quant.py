@@ -27,6 +27,7 @@ from typing import Any
 import torch
 
 from sd_lora_trainer_tpu_torch.ops.stash8 import dequantize_rowwise
+from sd_lora_trainer_tpu_torch.utils import profiling
 
 
 class QTensor:
@@ -65,7 +66,8 @@ class QTensor:
         """Dequantize to a dtype (int8 -> fp32 times s, one rounding to the
         dtype, as JAX's astype chain), or move to a device."""
         if isinstance(target, torch.dtype):
-            return dequantize_rowwise(self.q, self.s, target)
+            with profiling.layer("dequant"):
+                return dequantize_rowwise(self.q, self.s, target)
         return QTensor(self.q.to(target), self.s.to(target), self._dtype)
 
     def float(self) -> torch.Tensor:

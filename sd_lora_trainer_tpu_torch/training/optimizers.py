@@ -44,6 +44,7 @@ import torch
 from sd_lora_trainer_tpu_torch.config import TrainingConfig
 from sd_lora_trainer_tpu_torch.training.prodigy import Prodigy, prodigy_effective_lr
 from sd_lora_trainer_tpu_torch.training.quantized_adam import AdamW8bit
+from sd_lora_trainer_tpu_torch.utils import profiling
 
 
 def base_unet_lr(config: TrainingConfig) -> float:
@@ -256,7 +257,8 @@ class GroupOptimizer:
         LRs (a Prodigy group runs at its fixed LR of 1): device work only."""
         lrs = self.device_lrs()
         for name, opt in self.groups.items():
-            opt.update(lrs.get(name))
+            with profiling.phase("update." + name):
+                opt.update(lrs.get(name))
 
     def advance(self) -> None:
         """Count the update on the host."""

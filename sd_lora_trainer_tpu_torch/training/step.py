@@ -56,6 +56,7 @@ from sd_lora_trainer_tpu_torch.models.unet import UNetConfig, unet_forward
 from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
 from sd_lora_trainer_tpu_torch.parallel.distributed import local_rows
 from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer, group_tensors
+from sd_lora_trainer_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass
@@ -207,12 +208,6 @@ def compute_loss(
         shape = (shape[0] * n_data,) + tuple(shape[1:])
         return rows(torch.randn(shape, generator=generator, dtype=dtype, device=device))
 
-    if latent_eps is None:
-        latent_eps = draw(mean.shape, torch.float32)
-    latent_eps = rows(latent_eps)
-    std = torch.exp(0.5 * logvar.float())
-    latent = ((mean.float() + std * latent_eps.float()) * batch["latent_scale"]).to(mean.dtype)
-
     ti = trainable.get("ti", {})
 
     def conditioning():
@@ -230,84 +225,94 @@ def compute_loss(
         )
         return pe, None, None
 
-    if sc.remat_te:
-        # int8 text encoders: recomputing the conditioning keeps only the
-        # codes and its [B, 77, *] outputs alive, not the dequantized weights
-        prompt_embeds, pooled, add_time_ids = checkpoint(conditioning, use_reentrant=False,
-                                                         preserve_rng_state=False)
-    else:
-        prompt_embeds, pooled, add_time_ids = conditioning()
-    added_cond = ({"text_embeds": pooled, "time_ids": add_time_ids}
-                  if frozen.version == "sdxl" else None)
+    with profiling.phase("conditioning"):
+        if latent_eps is None:
+            latent_eps = draw(mean.shape, torch.float32)
+        latent_eps = rows(latent_eps)
+        std = torch.exp(0.5 * logvar.float())
+        latent = ((mean.float() + std * latent_eps.float())
+                  * batch["latent_scale"]).to(mean.dtype)
 
-    if noise is None:
-        noise = draw(latent.shape, latent.dtype)
-    noise = rows(noise).to(latent.dtype)
-    if sc.noise_offset > 0.0:
-        b, _, _, c = latent.shape
-        if offset_noise is None:
-            offset_noise = draw((b, 1, 1, c), latent.dtype)
-        noise = noise + sc.noise_offset * rows(offset_noise).to(latent.dtype)
-    if timesteps is None:
-        timesteps = rows(torch.randint(0, frozen.schedule.num_train_timesteps,
-                                       (latent.shape[0] * n_data,), generator=generator,
-                                       device=device))
-    timesteps = rows(timesteps)
-    noisy_latent = frozen.schedule.add_noise(latent, noise, timesteps)
+        if sc.remat_te:
+            # int8 text encoders: recomputing the conditioning keeps only the
+            # codes and its [B, 77, *] outputs alive, not the dequantized weights
+            prompt_embeds, pooled, add_time_ids = checkpoint(conditioning, use_reentrant=False,
+                                                             preserve_rng_state=False)
+        else:
+            prompt_embeds, pooled, add_time_ids = conditioning()
+        added_cond = ({"text_embeds": pooled, "time_ids": add_time_ids}
+                      if frozen.version == "sdxl" else None)
 
-    capture = sc.train_ti and sc.token_attention_loss_w > 0.0
-    model_pred, attn_scores = unet_forward(
-        _unet_params_with_adapters(frozen, trainable, sc), noisy_latent, timesteps,
-        prompt_embeds, frozen.unet_config, added_cond=added_cond, capture_attn=capture,
-        use_flash=sc.use_flash, remat=sc.remat, stash8=sc.stash8,
-        gather=par.gather if par is not None and par.fsdp is not None else None,
-    )
+    with profiling.phase("unet_forward"):
+        if noise is None:
+            noise = draw(latent.shape, latent.dtype)
+        noise = rows(noise).to(latent.dtype)
+        if sc.noise_offset > 0.0:
+            b, _, _, c = latent.shape
+            if offset_noise is None:
+                offset_noise = draw((b, 1, 1, c), latent.dtype)
+            noise = noise + sc.noise_offset * rows(offset_noise).to(latent.dtype)
+        if timesteps is None:
+            timesteps = rows(torch.randint(0, frozen.schedule.num_train_timesteps,
+                                           (latent.shape[0] * n_data,), generator=generator,
+                                           device=device))
+        timesteps = rows(timesteps)
+        noisy_latent = frozen.schedule.add_noise(latent, noise, timesteps)
 
-    mask = batch["mask"]
-    img_loss = diffusion_loss(model_pred, noise, noisy_latent, latent, mask, frozen.schedule,
-                              timesteps, sc.snr_gamma, group=group)
-    loss = img_loss
-    aux: Dict[str, torch.Tensor] = {"img_loss": img_loss}
-
-    if capture:
-        attn_loss = token_attention_loss(
-            attn_scores, mask, sc.daam_img_ratio, batch["caption_token_lengths"],
-            batch["ti_token_positions"], group=group,
+        capture = sc.train_ti and sc.token_attention_loss_w > 0.0
+        model_pred, attn_scores = unet_forward(
+            _unet_params_with_adapters(frozen, trainable, sc), noisy_latent, timesteps,
+            prompt_embeds, frozen.unet_config, added_cond=added_cond, capture_attn=capture,
+            use_flash=sc.use_flash, remat=sc.remat, stash8=sc.stash8,
+            gather=par.gather if par is not None and par.fsdp is not None else None,
         )
-        loss = loss + sc.token_attention_loss_w * attn_loss
-        aux["token_attention_loss"] = attn_loss
 
-    if sc.l1_penalty > 0.0 and sc.is_lora and "unet" in trainable:
-        mats = [m for _, e in iter_lora_leaves(trainable["unet"]) for m in (e["a"], e["b"])]
-        l1 = lora_l1_penalty(mats)
-        loss = loss + sc.l1_penalty * l1
-        aux["l1_norm"] = l1
+    with profiling.phase("loss"):
+        mask = batch["mask"]
+        img_loss = diffusion_loss(model_pred, noise, noisy_latent, latent, mask, frozen.schedule,
+                                  timesteps, sc.snr_gamma, group=group)
+        loss = img_loss
+        aux: Dict[str, torch.Tensor] = {"img_loss": img_loss}
 
-    if sc.train_ti:
-        active = ti_active(sc, step)
-        if sc.cond_reg_w > 0.0:
-            reg, observed = prompt_norm_regularization(
-                prompt_embeds, TARGET_PROMPT_NORM[frozen.version], group=group
+        if capture:
+            attn_loss = token_attention_loss(
+                attn_scores, mask, sc.daam_img_ratio, batch["caption_token_lengths"],
+                batch["ti_token_positions"], group=group,
             )
-            loss = loss + active * sc.cond_reg_w * reg
-            aux["prompt_norm"] = observed
-        cov_losses, std_losses = [], []
-        for which, rows in ti.items():
-            if rows is None:
-                continue
-            targets = frozen.distribution_targets[which]
-            if sc.tok_cov_reg_w > 0.0:
-                cov_losses.append(targets.covariance_loss(rows))
-            if sc.std_loss_w > 0.0:
-                std_losses.append(targets.std_loss(rows))
-        if cov_losses:
-            cov = torch.stack(cov_losses).mean()
-            loss = loss + active * sc.tok_cov_reg_w * cov
-            aux["covariance_tok_reg_loss"] = cov
-        if std_losses:
-            stdl = torch.stack(std_losses).mean()
-            loss = loss + active * sc.std_loss_w * stdl
-            aux["token_std_loss"] = stdl
+            loss = loss + sc.token_attention_loss_w * attn_loss
+            aux["token_attention_loss"] = attn_loss
+
+        if sc.l1_penalty > 0.0 and sc.is_lora and "unet" in trainable:
+            mats = [m for _, e in iter_lora_leaves(trainable["unet"]) for m in (e["a"], e["b"])]
+            l1 = lora_l1_penalty(mats)
+            loss = loss + sc.l1_penalty * l1
+            aux["l1_norm"] = l1
+
+        if sc.train_ti:
+            active = ti_active(sc, step)
+            if sc.cond_reg_w > 0.0:
+                reg, observed = prompt_norm_regularization(
+                    prompt_embeds, TARGET_PROMPT_NORM[frozen.version], group=group
+                )
+                loss = loss + active * sc.cond_reg_w * reg
+                aux["prompt_norm"] = observed
+            cov_losses, std_losses = [], []
+            for which, rows in ti.items():
+                if rows is None:
+                    continue
+                targets = frozen.distribution_targets[which]
+                if sc.tok_cov_reg_w > 0.0:
+                    cov_losses.append(targets.covariance_loss(rows))
+                if sc.std_loss_w > 0.0:
+                    std_losses.append(targets.std_loss(rows))
+            if cov_losses:
+                cov = torch.stack(cov_losses).mean()
+                loss = loss + active * sc.tok_cov_reg_w * cov
+                aux["covariance_tok_reg_loss"] = cov
+            if std_losses:
+                stdl = torch.stack(std_losses).mean()
+                loss = loss + active * sc.std_loss_w * stdl
+                aux["token_std_loss"] = stdl
 
     aux["tot_loss"] = loss
     return loss, aux
@@ -322,7 +327,8 @@ def ti_active(sc: StepConfig, step: Union[int, torch.Tensor]) -> Union[float, to
     return 0.0 if step / sc.max_train_steps > sc.ti_freeze_f else 1.0
 
 
-def make_train_step(sc: StepConfig, capture: bool = True, backend=None) -> "TrainStep":
+def make_train_step(sc: StepConfig, capture: bool = True, backend=None,
+                    phases: bool = False) -> "TrainStep":
     """Build `train_step(state, batch, frozen, draws=None) -> metrics`.
 
     `batch` tensors carry a leading [accum] dim (0-dim tensors ride through)
@@ -338,8 +344,14 @@ def make_train_step(sc: StepConfig, capture: bool = True, backend=None) -> "Trai
     stderr; `capture=False` runs it eagerly (to compare the two: no config
     field, JAX has no such knob). `backend` stands in for CUDA graphs
     (`CudaGraphs`), as the tests do on the CPU.
+
+    `phases=True` arms the step's phase marks on the card: each phase of
+    the body (utils/profiling.py `STEP_PHASES`) records a timing event at
+    its entry and exit, and a captured graph holds them, so that
+    `TrainStep.phase_ms()` reads the last step's device ms by phase. A step
+    built without them captures the graph it always did.
     """
-    return TrainStep(sc, capture, backend or CudaGraphs())
+    return TrainStep(sc, capture, backend or CudaGraphs(), phases)
 
 
 def _step_body(sc: StepConfig, state: TrainState, batch: Dict[str, torch.Tensor],
@@ -347,8 +359,10 @@ def _step_body(sc: StepConfig, state: TrainState, batch: Dict[str, torch.Tensor]
                draws: Optional[List[dict]] = None) -> Dict[str, torch.Tensor]:
     """The step as a graph holds it: the gradients, the metrics and the
     update, reading the step count from `step`; it moves no host count."""
-    metrics = accumulate_grads(sc, state, batch, frozen, draws, step=step)
-    state.optimizer.update()
+    metrics = _backward(sc, state, batch, frozen, draws, step)
+    with profiling.phase("update"):
+        metrics = _grad_norm(sc, state, metrics)
+        state.optimizer.update()
     return metrics
 
 
@@ -429,7 +443,9 @@ class _Graph:
     step: Optional[torch.Tensor] = None
     replay: Optional[Callable[[], dict]] = None
     launches: Optional[Dict[str, int]] = None
+    marks: Optional[profiling.PhaseMarks] = None  # the replays' phase marks, when armed
     warmup_s: float = 0.0
+    warmup_phases_s: Optional[Dict[str, float]] = None
     capture_s: float = 0.0
     pool_gib: float = 0.0
 
@@ -449,14 +465,21 @@ class TrainStep:
     the step count and the optimizers' counts, the graph runs, its metrics
     are cloned on the device, and the host counts the step (each replay
     counts its flash launches on the device, ops/flash_attention.py). A
-    failed capture or replay raises: there is no fallback to eager."""
+    failed capture or replay raises: there is no fallback to eager.
 
-    def __init__(self, sc: StepConfig, capture: bool, backend):
-        self.sc, self.capture, self.backend = sc, capture, backend
+    Every call opens host spans (utils/profiling.py): `sdlt.step.warmup`
+    and `sdlt.step.capture` at a key's first two steps, `sdlt.step.fill`,
+    `replay` and `clone` at each replay, and the body's phases wherever
+    its Python runs (eager steps and captures). With `phases` the body's
+    phases also mark the device on the card (`phase_ms()`)."""
+
+    def __init__(self, sc: StepConfig, capture: bool, backend, phases: bool = False):
+        self.sc, self.capture, self.backend, self.phases = sc, capture, backend, phases
         self.mode: Optional[str] = None
         self.eager_reason: Optional[str] = None
         self.graphs: Dict[tuple, _Graph] = {}
         self._step_t: Optional[torch.Tensor] = None
+        self._last_marks: Optional[profiling.PhaseMarks] = None
 
     def _choose_mode(self, device: torch.device) -> None:
         reason = None
@@ -487,16 +510,27 @@ class TrainStep:
         if graph is None:
             graph = self.graphs[key] = _Graph(state, frozen)
             t0 = time.perf_counter()
-            with self.backend.warmup(device):
+            with profiling.span("step.warmup"), self.backend.warmup(device):
                 metrics = self._eager(state, batch, frozen, None, device)
             graph.warmup_s = time.perf_counter() - t0
+            graph.warmup_phases_s = dict(self._last_marks.host_s)
             return metrics
         if graph.replay is None:
-            self._capture(graph, batch, device)
-        self._fill(graph, batch)
-        outputs = graph.replay()
+            with profiling.span("step.capture"):
+                self._capture(graph, batch, device)
+        with profiling.span("step.fill"):
+            self._fill(graph, batch)
+        with profiling.span("step.replay"):
+            outputs = graph.replay()
+        self._last_marks = graph.marks
         _count_step(state)
-        return {k: v.clone() for k, v in outputs.items()}
+        with profiling.span("step.clone"):
+            return {k: v.clone() for k, v in outputs.items()}
+
+    def _new_marks(self, device: torch.device) -> profiling.PhaseMarks:
+        """The phases' host seconds, and on the card their device events
+        where the step is armed."""
+        return profiling.PhaseMarks(device=self.phases and device.type == "cuda")
 
     def _eager(self, state, batch, frozen, draws, device) -> Dict[str, torch.Tensor]:
         batch = {k: v.to(device, non_blocking=True) for k, v in batch.items()}
@@ -504,7 +538,9 @@ class TrainStep:
             self._step_t = torch.zeros((), dtype=torch.int64, device=device)
         self._step_t.fill_(state.step)
         state.optimizer.sync()
-        metrics = _step_body(self.sc, state, batch, frozen, self._step_t, draws)
+        self._last_marks = self._new_marks(device)
+        with profiling.marking(self._last_marks):
+            metrics = _step_body(self.sc, state, batch, frozen, self._step_t, draws)
         _count_step(state)
         return metrics
 
@@ -526,10 +562,14 @@ class TrainStep:
         reserved = self.backend.reserved_gib(device)
         fa.prepare_graph_counts(device)
         before = dict(fa.RECORDED)
+        graph.marks = self._new_marks(device)
+
+        def body():
+            with profiling.marking(graph.marks):
+                return _step_body(self.sc, state, graph.inputs, graph.frozen, graph.step)
+
         t0 = time.perf_counter()
-        graph.replay = self.backend.capture(
-            lambda: _step_body(self.sc, state, graph.inputs, graph.frozen, graph.step),
-            state.generator, device)
+        graph.replay = self.backend.capture(body, state.generator, device)
         graph.capture_s = time.perf_counter() - t0
         graph.pool_gib = self.backend.reserved_gib(device) - reserved
         graph.launches = {k: fa.RECORDED[k] - before[k] for k in fa.RECORDED}
@@ -541,10 +581,22 @@ class TrainStep:
               file=sys.stderr, flush=True)
 
     def captures(self) -> List[dict]:
-        """Each captured key's seconds of its eager first step and of its
-        capture, the pool's growth and the launches of a replay."""
-        return [{"warmup_s": g.warmup_s, "capture_s": g.capture_s, "pool_gib": g.pool_gib,
-                 "launches": g.launches} for g in self.graphs.values() if g.replay is not None]
+        """Each captured key's seconds of its eager first step, and of each
+        step phase in it (host seconds: the lazy work of a first step shows
+        in the phase that runs into it), and of its capture, the pool's
+        growth and the launches of a replay."""
+        return [{"warmup_s": g.warmup_s, "warmup_phases_s": g.warmup_phases_s,
+                 "capture_s": g.capture_s, "pool_gib": g.pool_gib, "launches": g.launches}
+                for g in self.graphs.values() if g.replay is not None]
+
+    def phase_ms(self) -> Optional[Dict[str, float]]:
+        """The last step's device ms by phase (utils/profiling.py
+        `STEP_PHASES`, summed over the micro-batches, and `update.<group>`
+        for each optimizer group), its body's in all ("total"), and the
+        part of it outside the phases ("other"); waits for that step. None
+        when the step is not armed (`make_train_step(..., phases=True)`)
+        or runs on the CPU."""
+        return None if self._last_marks is None else self._last_marks.ms()
 
 
 def accumulate_grads(sc: StepConfig, state: TrainState, batch: Dict[str, torch.Tensor],
@@ -553,6 +605,13 @@ def accumulate_grads(sc: StepConfig, state: TrainState, batch: Dict[str, torch.T
     """The step up to the update: the trainables' .grad from every
     micro-batch (synced across the mesh), and the step's metrics. `step`
     (default `state.step`) is what compute_loss reads."""
+    return _grad_norm(sc, state, _backward(sc, state, batch, frozen, draws, step))
+
+
+def _backward(sc: StepConfig, state: TrainState, batch: Dict[str, torch.Tensor],
+              frozen: FrozenModels, draws: Optional[List[dict]],
+              step: Union[int, torch.Tensor, None]) -> Dict[str, torch.Tensor]:
+    """Every micro-batch's loss and backward: the .grad and the metrics."""
     par = sc.parallel
     if par is not None:  # this rank's rows of the [accum, B, ...] global batch
         batch = local_rows(batch, par.n_data, par.mesh.data_rank)
@@ -565,10 +624,18 @@ def accumulate_grads(sc: StepConfig, state: TrainState, batch: Dict[str, torch.T
             state.generator,
             **(draws[i] if draws else {}),
         )
-        (loss / sc.grad_accum).backward()
+        with profiling.phase("backward"):
+            (loss / sc.grad_accum).backward()
         for k, v in aux.items():
             aux_sum[k] = aux_sum.get(k, 0.0) + v.detach()
-    metrics = {k: v / sc.grad_accum for k, v in aux_sum.items()}
+    return {k: v / sc.grad_accum for k, v in aux_sum.items()}
+
+
+def _grad_norm(sc: StepConfig, state: TrainState,
+               metrics: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The metrics with the gradients' norm (the gradients synced across
+    the mesh first)."""
+    par = sc.parallel
     tensors = group_tensors(state.trainable)
     if par is None:
         grads = [t.grad for t in tensors if t.grad is not None]

@@ -14,7 +14,18 @@
 - `count_step_flops`: the model FLOPs of one step's forward and backward,
   counted by `FlopCounterMode` (the flash ops carry their formulas,
   ops/flash_attention.py);
-- the card's published peaks, by device name (`peak_bf16_flops`).
+- the card's published peaks, by device name (`peak_bf16_flops`);
+- named spans, `torch.profiler.record_function` ranges named
+  `sdlt.<area>.<name>`, so that they sit in a profiler's trace beside the
+  kernels, on the same clock. Three levels:
+  - `span(name)`: a host range, always on (a few µs when no profiler runs);
+  - `phase(name)`: a step phase, `sdlt.step.<name>`; inside `marking(marks)`
+    it also records its host seconds and, where `marks` times the device,
+    a CUDA timing event at its entry and exit (`external`, so that a
+    captured graph holds them as event-record nodes and every replay
+    records them again);
+  - `layer(name)`: `sdlt.layer.<name>`, armed only inside `layer_spans()`;
+    disarmed it returns one shared no-op context.
 
 Unlike the JAX package's `trace_steps`, an exception in the traced block
 comes out unchanged (the JAX version yields a second time and reports it
@@ -53,6 +64,108 @@ FAMILY_WORDS = {
 WRAPPER_KERNELS = {"flash_fwd": "flash_fwd_kernel", "flash_bwd": "flash_bwd_kernel"}
 # the Chrome trace's categories of device work (kernels, copies, fills)
 _DEVICE_CATEGORIES = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+SPAN_PREFIX = "sdlt."
+# the step's phases in the order the body runs them; PhaseMarks.ms() names
+# the body's own marks "total" and the part of it outside these "other"
+STEP_PHASES = ("conditioning", "unet_forward", "loss", "backward", "update")
+_NO_SPAN = contextlib.nullcontext()
+_layers_armed = False
+_marks: Optional["PhaseMarks"] = None
+
+
+def span(name: str):
+    """The host range `sdlt.<name>`."""
+    return torch.autograd.profiler.record_function(SPAN_PREFIX + name)
+
+
+def layer(name: str):
+    """`sdlt.layer.<name>` inside `layer_spans()`, else the shared no-op."""
+    if not _layers_armed:
+        return _NO_SPAN
+    return torch.autograd.profiler.record_function(SPAN_PREFIX + "layer." + name)
+
+
+@contextlib.contextmanager
+def layer_spans() -> Iterator[None]:
+    """Arm `layer(...)` for the block (every thread: remat's recompute runs
+    on the autograd engine's)."""
+    global _layers_armed
+    armed, _layers_armed = _layers_armed, True
+    try:
+        yield
+    finally:
+        _layers_armed = armed
+
+
+def timing_event() -> "torch.cuda.Event":
+    return torch.cuda.Event(enable_timing=True, external=True)
+
+
+class PhaseMarks:
+    """One step body's phases: host seconds by phase and, when `device`,
+    a pair of timing events for each phase entered (and for the body,
+    "total"), on the stream that runs it. A captured body's events are
+    recorded again by every replay, so `ms()` reads the latest one."""
+
+    def __init__(self, device: bool):
+        self.device = device
+        self.host_s: Dict[str, float] = collections.defaultdict(float)
+        self.events: List[Tuple[str, object, object]] = []
+
+    def enter(self) -> Tuple[float, Optional[object]]:
+        start = None
+        if self.device:
+            start = timing_event()
+            start.record()
+        return time.perf_counter(), start
+
+    def exit(self, name: str, opened: Tuple[float, Optional[object]]) -> None:
+        t0, start = opened
+        if start is not None:
+            end = timing_event()
+            end.record()
+            self.events.append((name, start, end))
+        self.host_s[name] += time.perf_counter() - t0
+
+    def ms(self) -> Optional[Dict[str, float]]:
+        """Device ms by phase, summed over the phase's entries (the
+        micro-batches), with "total" and "other"; None without events. Waits
+        for the body's last event."""
+        if not self.events:
+            return None
+        self.events[-1][2].synchronize()
+        out: Dict[str, float] = collections.defaultdict(float)
+        for name, start, end in self.events:
+            out[name] += start.elapsed_time(end)
+        out["other"] = out["total"] - sum(out[p] for p in STEP_PHASES if p in out)
+        return dict(out)
+
+
+@contextlib.contextmanager
+def marking(marks: PhaseMarks) -> Iterator[None]:
+    """Make `marks` record the phases of the block, and the block itself as
+    "total"."""
+    global _marks
+    held, _marks = _marks, marks
+    opened = marks.enter()
+    try:
+        yield
+    finally:
+        _marks = held
+    marks.exit("total", opened)
+
+
+@contextlib.contextmanager
+def phase(name: str) -> Iterator[None]:
+    """The step phase `sdlt.step.<name>`, marked where `marking` is on."""
+    marks = _marks
+    with torch.autograd.profiler.record_function(SPAN_PREFIX + "step." + name):
+        opened = marks.enter() if marks is not None else None
+        yield
+        if marks is not None:
+            marks.exit(name, opened)
 
 
 def peak_bf16_flops(device_name: str) -> Optional[float]:
