@@ -236,6 +236,47 @@ KERNEL_CASES = [
 ]
 # calls per UNet pass at SDXL 1024px: 10 blocks at 4096 tokens, 60 at 1024
 MAIN_PATH_CALLS = {"sdxl_4096": 10, "sdxl_1024": 60}
+# the norm kernels' cases (name, kind, [B, rows, C], groups, SiLU fused, eps,
+# directions), bf16: the resnets' GroupNorm+SiLU and the transformer blocks'
+# LayerNorms of SDXL 1024px bs=4 and of SD1.5's face recipe at 768px bs=4
+# (its 2304 and 576 token levels padded to 3072 and 1024), and CLIP-L's and
+# bigG's LayerNorms over 77 tokens, forward and backward (TI trains through
+# the encoders); then the render's, forward only: the SDXL UNet at batch 12
+# (6 images, CFG) and the VAE decoder's at 1024px, one image a chunk
+_TRAIN, _RENDER = ("norm_fwd", "norm_bwd"), ("norm_fwd",)
+NORM_CASES = [
+    ("sdxl_gn_128_320", "group", (4, 128 * 128, 320), 32, True, 1e-5, _TRAIN),
+    ("sdxl_gn_64_640", "group", (4, 64 * 64, 640), 32, True, 1e-5, _TRAIN),
+    ("sdxl_gn_32_1280", "group", (4, 32 * 32, 1280), 32, True, 1e-5, _TRAIN),
+    ("sdxl_ln_4096_640", "layer", (4, 4096, 640), 0, False, 1e-5, _TRAIN),
+    ("sdxl_ln_1024_1280", "layer", (4, 1024, 1280), 0, False, 1e-5, _TRAIN),
+    ("sd15_gn_96_320", "group", (4, 96 * 96, 320), 32, True, 1e-5, _TRAIN),
+    ("sd15_gn_48_640", "group", (4, 48 * 48, 640), 32, True, 1e-5, _TRAIN),
+    ("sd15_gn_24_1280", "group", (4, 24 * 24, 1280), 32, True, 1e-5, _TRAIN),
+    ("sd15_ln_9216_320", "layer", (4, 9216, 320), 0, False, 1e-5, _TRAIN),
+    ("sd15_ln_3072_640", "layer", (4, 3072, 640), 0, False, 1e-5, _TRAIN),
+    ("sd15_ln_1024_1280", "layer", (4, 1024, 1280), 0, False, 1e-5, _TRAIN),
+    ("clip_l_ln_77_768", "layer", (12, 77, 768), 0, False, 1e-5, _TRAIN),
+    ("clip_g_ln_77_1280", "layer", (12, 77, 1280), 0, False, 1e-5, _TRAIN),
+    ("render_gn_128_320", "group", (12, 128 * 128, 320), 32, True, 1e-5, _RENDER),
+    ("render_gn_64_640", "group", (12, 64 * 64, 640), 32, True, 1e-5, _RENDER),
+    ("render_gn_32_1280", "group", (12, 32 * 32, 1280), 32, True, 1e-5, _RENDER),
+    ("render_ln_4096_640", "layer", (12, 4096, 640), 0, False, 1e-5, _RENDER),
+    ("render_ln_1024_1280", "layer", (12, 1024, 1280), 0, False, 1e-5, _RENDER),
+    ("vae_gn_1024_128", "group", (1, 1024 * 1024, 128), 32, True, 1e-6, _RENDER),
+    ("vae_gn_1024_256", "group", (1, 1024 * 1024, 256), 32, True, 1e-6, _RENDER),
+    ("vae_gn_512_256", "group", (1, 512 * 512, 256), 32, True, 1e-6, _RENDER),
+    ("vae_gn_512_512", "group", (1, 512 * 512, 512), 32, True, 1e-6, _RENDER),
+    ("vae_gn_128_512", "group", (1, 128 * 128, 512), 32, False, 1e-6, _RENDER),
+]
+# bytes an element a norm must move, each read once and each write once, in
+# bf16: the forward reads x and writes y, the backward reads x and dy and
+# writes dx (the fp32 statistics, a few bytes a row or a group, left out)
+NORM_BYTES = {"norm_fwd": 4, "norm_bwd": 6}
+NORM_SOURCE = "sd_lora_trainer_tpu_torch/csrc/norm.cu"
+# the library call a LayerNorm kernel is timed beside: PyTorch's own fused
+# LayerNorm on x's dtype (fp32 statistics and affine, rounded once)
+NORM_LIBRARY_CALL = "torch.nn.functional.layer_norm on bf16 x, γ, β (autograd for dx)"
 # flash_bwd's launches a case held bit-equal to the first (2 elsewhere, and
 # for flash_fwd): more at SDXL's main shape and the longest sequence, where
 # the most adders share a q tile
@@ -366,10 +407,10 @@ def phase_device():
     cold = not any(kernels._lib_path(n).exists() for n in kernels.KERNEL_SOURCES)
     secs = kernels.build_kernels()
     log(f"[device] built {', '.join(kernels.KERNEL_SOURCES)} for sm_90a in {secs:.1f} s")
-    units = len(kernels.KERNEL_SOURCES) * (len(kernels.HEAD_DIM_TILES) + 1)
-    log(f"[build] {'cold' if cold else 'cached'}: {len(kernels.KERNEL_SOURCES)} kernels x "
-        f"{len(kernels.HEAD_DIM_TILES)} head-dim tiles x 2 output types in {units} nvcc units, "
-        f"{secs:.1f} s on {os.cpu_count()} cores")
+    units = sum(len(kernels._units(n)) for n in kernels.KERNEL_SOURCES)
+    log(f"[build] {'cold' if cold else 'cached'}: {len(kernels.KERNEL_SOURCES)} kernel sources "
+        f"(flash: {len(kernels.HEAD_DIM_TILES)} head-dim tiles x 2 output types) in {units} nvcc "
+        f"units, {secs:.1f} s on {os.cpu_count()} cores")
     for name, report in kernels.BUILD_LOG.items():
         log(f"[device] ptxas {name}: " + "; ".join(kernels.ptxas_summary(report)))
     return smi
@@ -476,6 +517,84 @@ def phase_kernels():
         log(f"[kernels] {case} [{b},{h},{lp},{d}] valid={valid or lp}: " + "; ".join(line)
             + f"; sdpa fwd {lib_fwd:.3f} ms, bwd {lib_bwd:.3f} ms")
         del q, k, v, do, o_r, lse_r, di, qs, ks, vs, out_s
+        torch.cuda.empty_cache()
+    return summary
+
+
+def phase_norms() -> dict:
+    """The norm kernels (ops/norms.py) against their plain versions at the
+    main path's shapes (NORM_CASES), in each case's directions: the
+    forward's output and the backward's dx within KERNEL_TOL of the largest
+    plain value, a second launch of each bit for bit equal to the first, and
+    each one's device ms beside its byte bound and the plain version's ms
+    (forward, and autograd through the plain chain for the backward); a
+    LayerNorm also beside PyTorch's own LayerNorm on bf16 (`library_ms`)."""
+    import torch.nn.functional as F
+
+    from sd_lora_trainer_tpu_torch.ops import norms
+    from sd_lora_trainer_tpu_torch.utils.profiling import PEAK_BYTES
+
+    dev = torch.device("cuda")
+    summary = {n: {"err": 0.0, "cases": []} for n in NORM_BYTES}
+    for case, kind, shape, groups, silu, eps, directions in NORM_CASES:
+        g = torch.Generator(device=dev).manual_seed(0)
+        c = shape[-1]
+        x = (torch.randn(shape, generator=g, device=dev) * 2).bfloat16()
+        dy = torch.randn(shape, generator=g, device=dev).bfloat16()
+        w = (1 + 0.3 * torch.randn(c, generator=g, device=dev)).bfloat16()
+        b = (0.2 * torch.randn(c, generator=g, device=dev)).bfloat16()
+        if kind == "group":
+            out, mean, rstd = norms.group_norm_fwd_kernel(x, w, b, groups, eps, silu)
+            runs = {"norm_fwd": lambda: norms.group_norm_fwd_kernel(x, w, b, groups, eps, silu),
+                    "norm_bwd": lambda: norms.group_norm_bwd_kernel(x, dy, w, b, mean, rstd,
+                                                                    groups, silu)}
+
+            def plain(t):
+                return norms.group_norm_ref(t, w, b, groups, eps, silu)
+            library = None
+        else:
+            out, mean, rstd = norms.layer_norm_fwd_kernel(x, w, b, eps)
+            runs = {"norm_fwd": lambda: norms.layer_norm_fwd_kernel(x, w, b, eps),
+                    "norm_bwd": lambda: norms.layer_norm_bwd_kernel(x, dy, w, b, mean, rstd)}
+
+            def plain(t):
+                return norms.layer_norm_ref(t, w, b, eps)
+
+            def library(t):
+                return F.layer_norm(t, (c,), w, b, eps)
+        xs = x.detach().requires_grad_()
+        out_p = plain(xs) if "norm_bwd" in directions else None
+        out_l = library(xs) if library and "norm_bwd" in directions else None
+        plains = {"norm_fwd": lambda: (plain(x),),
+                  "norm_bwd": lambda: torch.autograd.grad(out_p, xs, dy, retain_graph=True)}
+        libraries = {"norm_fwd": lambda: (library(x),),
+                     "norm_bwd": lambda: torch.autograd.grad(out_l, xs, dy, retain_graph=True)}
+        line = []
+        for name in directions:
+            got, want = runs[name]()[0], plains[name]()[0]
+            again = runs[name]()[0]
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(got.float()).all()), f"{name} {case}: non-finite output")
+            err = float((got.float() - want.float()).abs().max())
+            tol = KERNEL_TOL * float(want.float().abs().max())
+            check(err <= tol, f"{name} {case}: max_abs_err {err:.3e} > tol {tol:.3e}")
+            check(torch.equal(got, again), f"{name} {case}: two launches differ")
+            ms, plain_ms = cuda_ms(runs[name]), cuda_ms(plains[name], iters=3, warmup=1)
+            bound = NORM_BYTES[name] * x.numel() / PEAK_BYTES * 1e3
+            entry = {"case": case, "kind": kind + ("+silu" if silu else ""), "shape": list(shape),
+                     "eps": eps, "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound, "bound_by": "bytes", "roofline_pct": 100 * bound / ms}
+            text = (f"{name} err={err:.2e} (tol {tol:.2e}) ms={ms:.4f} bound_ms={bound:.4f} "
+                    f"({100 * bound / ms:.1f}%) plain_ms={plain_ms:.3f}")
+            if library:
+                entry["library_ms"] = cuda_ms(libraries[name])
+                text += f" library_ms={entry['library_ms']:.4f}"
+            summary[name]["err"] = max(summary[name]["err"], err)
+            summary[name]["cases"].append(entry)
+            line.append(text)
+        log(f"[norms] {case} {kind}{'+silu' if silu else ''} {list(shape)} eps {eps:g}: "
+            + "; ".join(line) + "; run_to_run=bitwise")
+        del x, dy, out, mean, rstd, xs, out_p, out_l
         torch.cuda.empty_cache()
     return summary
 
@@ -732,6 +851,7 @@ def phase_train(plans):
 def _train_plan(run, plan: str, default):
     from sd_lora_trainer_tpu_torch.models.quant import quantize_frozen
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.ops import norms
     from sd_lora_trainer_tpu_torch.training import step as ts
 
     bs = run["config"].train_batch_size
@@ -751,16 +871,20 @@ def _train_plan(run, plan: str, default):
     train_step = ts.make_train_step(run["sc"])
     expected = PLAN_LAUNCHES[plan]
     fa.reset_launch_counts()  # this plan's run of the main path starts here
-    step_secs, before = [], fa.launch_counts()
+    norms.reset_launch_counts()
+    step_secs, before, norm_before = [], fa.launch_counts(), norms.launch_counts()
     for i in range(GRAPH_WARM + 3):
         torch.cuda.synchronize()
         t = time.perf_counter()
         metrics = train_step(run["state"], run["batch"], run["frozen"])
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        now = fa.launch_counts()
+        now, norm_now = fa.launch_counts(), norms.launch_counts()
         counts = {n: now[n] - before[n] for n in now}
-        before = now
+        norm = {n: norm_now[n] - norm_before[n] for n in norm_now}
+        before, norm_before = now, norm_now
+        check(norm["norm_fwd"] > 0 and norm["norm_bwd"] > 0,
+              f"{plan} step {i}: the norm kernels were not launched: {norm}")
         vals = {k: float(v) for k, v in metrics.items()}
         kind = ("eager first step", "capture + replay")[i] if i < GRAPH_WARM else "timed"
         log(f"[train] {plan} step {i} ({kind}) {secs:.3f} s/step {bs / secs:.3f} imgs/s "
@@ -771,7 +895,7 @@ def _train_plan(run, plan: str, default):
         if i >= GRAPH_WARM:
             step_secs.append(secs)
     capture = _check_graph(train_step, f"train {plan}")
-    launches = fa.launch_counts()
+    launches = {**fa.launch_counts(), **norms.launch_counts()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     mean = sum(step_secs) / len(step_secs)
     log(f"[train] SDXL 1024px bs={bs} plan {plan}: {mean:.3f} s/step, {bs / mean:.3f} imgs/s "
@@ -847,6 +971,7 @@ def _eager_vs_graph(run, eager_runs: int, per_step: bool = False, spread_runs: i
     start."""
     from sd_lora_trainer_tpu_torch import checkpoint as ck
     from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+    from sd_lora_trainer_tpu_torch.ops import norms
     from sd_lora_trainer_tpu_torch.training import step as ts
 
     state, batch, frozen = run["state"], run["batch"], run["frozen"]
@@ -871,6 +996,7 @@ def _eager_vs_graph(run, eager_runs: int, per_step: bool = False, spread_runs: i
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats()
             fa.reset_launch_counts()  # this path's run starts here
+            norms.reset_launch_counts()
             secs, losses, after = [], [], []
             for _ in range(GRAPH_STEPS):
                 torch.cuda.synchronize()
@@ -882,6 +1008,7 @@ def _eager_vs_graph(run, eager_runs: int, per_step: bool = False, spread_runs: i
                 if per_step:
                     after.append(_group_params(state))
             out[name] = {"steps_s": secs, "losses": losses, "launches": fa.launch_counts(),
+                         "norm_launches": norms.launch_counts(),
                          "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
                          "final": _group_params(state), "after": after,
                          "generator": state.generator.get_state()}
@@ -1946,6 +2073,7 @@ def phase_sd15():
     full-width SD1.5 fp16 checkpoint file; returns the flash launches of its
     train steps and of its render. Everything it writes lives in a temp dir
     under build/, removed after."""
+    from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
     from sd_lora_trainer_tpu_torch.models import clip
     from sd_lora_trainer_tpu_torch.models.synthesize import synthesize_checkpoint
     from sd_lora_trainer_tpu_torch.models.unet import SD15_UNET_CONFIG
@@ -2009,13 +2137,13 @@ def phase_sd15():
         check(summ["step_mode"] == "graph" and summ["captures"],
               f"the SD1.5 steps ran {summ['step_mode']}, captures {summ['captures']}")
         train_l, render_l = summ["launches"]["train"], summ["launches"]["render"]
-        per_step = {k: v / summ["steps"] for k, v in train_l.items()}
+        per_step = {k: train_l[k] / summ["steps"] for k in fa.LAUNCHES}
         check(per_step == {"flash_fwd": SD15_FLASH_BLOCKS, "flash_bwd": SD15_FLASH_BLOCKS},
               f"SD1.5 flash launches a step {per_step}, expected {SD15_FLASH_BLOCKS} of each")
         n_img = sum(summ["rendered_images"])
         render = {k: sum(r[k] for r in render_l) for k in train_l}
-        check(n_img == SD15_RENDERS and render == {"flash_fwd": SD15_RENDER_FWD * len(render_l),
-                                                    "flash_bwd": 0},
+        check(n_img == SD15_RENDERS and render["flash_fwd"] == SD15_RENDER_FWD * len(render_l)
+              and render["flash_bwd"] == 0,
               f"SD1.5 render: {n_img} images, launches {render_l}")
         enc = summ["vae_encode"]
         log(f"[sd15] face recipe {os.path.basename(SD15_CONFIG)}: {res}px, bs {bs}, rank "
@@ -2688,6 +2816,8 @@ def main() -> int:
     smi = phase_device()
     summary = phase_kernels()
     lap("kernels")
+    norm_summary = phase_norms()
+    lap("norms")
     phase_reference()
     run, results = phase_train([args.plan] if args.plan else ["full", "auto"])
     lap("train")
@@ -2711,7 +2841,8 @@ def main() -> int:
     lap("parallel")
     launches = cli["launches"]
     by_path = {f"train_{p}": r["launches"] for p, r in results.items()}
-    by_path.update(graph_eager=graph["eager"]["launches"], graph=graph["graph"]["launches"])
+    by_path.update({path: {**graph[run]["launches"], **graph[run]["norm_launches"]}
+                    for path, run in (("graph_eager", "eager"), ("graph", "graph"))})
     by_path.update({f"opt_{name}": options[name]["launches"] for name in OPTIONS})
     by_path.update({path: optim[path]["launches"] for path in OPTIM_PATHS})
     by_path.update(cli_train=cli["train_launches"], cli_render=cli["render_launches"])
@@ -2738,6 +2869,22 @@ def main() -> int:
             "library_ms": s["library_ms"], "library_call": LIBRARY_CALLS[name],
             "timing": TIMING, "run_to_run": "bitwise",
             "cases": s["cases"],
+        })
+    for name, s in norm_summary.items():
+        check(launches[name] > 0, f"{name} was never launched on the main path")
+        paths = ("train_auto", "graph", "cli_train", "sd15_train")
+        if name == "norm_fwd":
+            paths += ("cli_render", "sd15_render")
+        check(all(by_path[path][name] > 0 for path in paths),
+              f"{name} was not launched on every path of {paths}: {by_path}")
+        entries.append({
+            "name": name, "route": "cuda", "source": NORM_SOURCE,
+            "replaces": "none (stock-op chains in fp32, a trace's bottleneck)",
+            "launches": launches[name],
+            "launches_by_path": {p: counts[name] for p, counts in by_path.items()
+                                 if name in counts},
+            "max_abs_err": s["err"], "library_call": NORM_LIBRARY_CALL, "timing": TIMING,
+            "run_to_run": "bitwise", "cases": s["cases"],
         })
     log(json.dumps({"kernels": entries}))
     log(smi)

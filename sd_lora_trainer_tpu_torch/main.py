@@ -76,6 +76,7 @@ from sd_lora_trainer_tpu_torch.models.quant import quantize_base_weights, quanti
 from sd_lora_trainer_tpu_torch.models.tokenizer import CLIPTokenizer, build_sized_test_vocab, load_tokenizer
 from sd_lora_trainer_tpu_torch.models.weights import LoadedModels, load_models_from_checkpoint
 from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+from sd_lora_trainer_tpu_torch.ops import norms
 from sd_lora_trainer_tpu_torch.parallel import sharding
 from sd_lora_trainer_tpu_torch.parallel.distributed import (
     barrier,
@@ -246,11 +247,12 @@ def _sync(device: torch.device) -> None:
 
 
 def _launches() -> Dict[str, int]:
-    return fa.launch_counts()
+    """The hand-written kernels' launches: flash's, then the norms'."""
+    return {**fa.launch_counts(), **norms.launch_counts()}
 
 
 def _launch_delta(before: Dict[str, int]) -> Dict[str, int]:
-    now = fa.launch_counts()
+    now = _launches()
     return {k: now[k] - before[k] for k in now}
 
 

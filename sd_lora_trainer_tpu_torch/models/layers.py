@@ -26,6 +26,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from sd_lora_trainer_tpu_torch.ops import norms
 from sd_lora_trainer_tpu_torch.ops.checkpoint_names import checkpoint_name
 from sd_lora_trainer_tpu_torch.utils import profiling
 
@@ -123,21 +124,19 @@ def conv2d(p: dict, x: torch.Tensor, stride: int = 1, padding="SAME") -> torch.T
     return y
 
 
-def group_norm(p: dict, x: torch.Tensor, groups: int = 32, eps: float = 1e-5) -> torch.Tensor:
-    """GroupNorm over the channel (last) axis of NHWC, fp32 statistics."""
-    b, h, w, c = x.shape
+def group_norm(p: dict, x: torch.Tensor, groups: int = 32, eps: float = 1e-5,
+               silu: bool = False) -> torch.Tensor:
+    """GroupNorm over the channel (last) axis of NHWC, fp32 statistics;
+    `silu(group_norm(...))` in one pass when `silu` (ops/norms.py: the fused
+    kernels on a card, the plain formulas elsewhere)."""
     with profiling.layer("norm"):
-        xf = x.float().reshape(b, h * w, groups, c // groups)
-        var, mean = torch.var_mean(xf, dim=(1, 3), keepdim=True, correction=0)
-        xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
-        return (xf * p["weight"].float() + p["bias"].float()).to(x.dtype)
+        return norms.group_norm(x, p["weight"], p["bias"], groups, eps, silu)
 
 
 def layer_norm(p: dict, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """LayerNorm over the last axis, fp32 statistics."""
+    """LayerNorm over the last axis, fp32 statistics (ops/norms.py)."""
     with profiling.layer("norm"):
-        out = F.layer_norm(x.float(), (x.shape[-1],), p["weight"].float(), p["bias"].float(), eps)
-        return out.to(x.dtype)
+        return norms.layer_norm(x, p["weight"], p["bias"], eps)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:

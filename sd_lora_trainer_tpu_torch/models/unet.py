@@ -130,10 +130,10 @@ TINY_SD15_UNET_CONFIG = UNetConfig(
 
 
 def _resnet(p: dict, x: torch.Tensor, temb: torch.Tensor, groups: int) -> torch.Tensor:
-    h = conv2d(p["conv1"], silu(group_norm(p["norm1"], x, groups)), padding=1)
+    h = conv2d(p["conv1"], group_norm(p["norm1"], x, groups, silu=True), padding=1)
     t = dense(p["time_emb_proj"], silu(temb))  # [B, C]
     h = h + t[:, None, None, :].to(h.dtype)
-    h = conv2d(p["conv2"], silu(group_norm(p["norm2"], h, groups)), padding=1)
+    h = conv2d(p["conv2"], group_norm(p["norm2"], h, groups, silu=True), padding=1)
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x, padding="VALID")
     return x + h
@@ -468,8 +468,8 @@ def unet_forward(
         if "upsamplers" in bp:
             x = conv2d(P(bp["upsamplers"][0]["conv"]), upsample_nearest_2x(x), padding=1)
 
-    x = conv2d(P(params["conv_out"]), silu(group_norm(P(params["conv_norm_out"]), x, groups)),
-               padding=1)
+    x = conv2d(P(params["conv_out"]),
+               group_norm(P(params["conv_norm_out"]), x, groups, silu=True), padding=1)
     return x, attn_scores
 
 

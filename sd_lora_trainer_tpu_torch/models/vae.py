@@ -21,7 +21,7 @@ from typing import List, Tuple
 import torch
 import torch.nn.functional as F
 
-from sd_lora_trainer_tpu_torch.models.layers import conv2d, dense, group_norm, silu, upsample_nearest_2x
+from sd_lora_trainer_tpu_torch.models.layers import conv2d, dense, group_norm, upsample_nearest_2x
 from sd_lora_trainer_tpu_torch.ops.attention import multihead_attention
 
 
@@ -45,8 +45,8 @@ def downsample_factor(cfg: VAEConfig) -> int:
 
 
 def _resnet(p: dict, x: torch.Tensor, groups: int) -> torch.Tensor:
-    h = conv2d(p["conv1"], silu(group_norm(p["norm1"], x, groups, eps=1e-6)), padding=1)
-    h = conv2d(p["conv2"], silu(group_norm(p["norm2"], h, groups, eps=1e-6)), padding=1)
+    h = conv2d(p["conv1"], group_norm(p["norm1"], x, groups, eps=1e-6, silu=True), padding=1)
+    h = conv2d(p["conv2"], group_norm(p["norm2"], h, groups, eps=1e-6, silu=True), padding=1)
     if "conv_shortcut" in p:
         x = conv2d(p["conv_shortcut"], x, padding="VALID")
     return x + h
@@ -77,7 +77,8 @@ def vae_encode(params: dict, images: torch.Tensor, cfg: VAEConfig = SD15_VAE_CON
     x = _resnet(mid["resnets"][0], x, g)
     x = _attn_block(mid["attentions"][0], x, g)
     x = _resnet(mid["resnets"][1], x, g)
-    x = conv2d(enc["conv_out"], silu(group_norm(enc["conv_norm_out"], x, g, eps=1e-6)), padding=1)
+    x = conv2d(enc["conv_out"], group_norm(enc["conv_norm_out"], x, g, eps=1e-6, silu=True),
+               padding=1)
     moments = conv2d(params["quant_conv"], x, padding="VALID")
     mean, logvar = torch.chunk(moments, 2, dim=-1)
     return mean, torch.clamp(logvar, -30.0, 20.0)
@@ -106,7 +107,8 @@ def vae_decode(params: dict, latents: torch.Tensor, cfg: VAEConfig = SD15_VAE_CO
             x = _resnet(rp, x, g)
         if "upsamplers" in block:
             x = conv2d(block["upsamplers"][0]["conv"], upsample_nearest_2x(x), padding=1)
-    return conv2d(dec["conv_out"], silu(group_norm(dec["conv_norm_out"], x, g, eps=1e-6)), padding=1)
+    return conv2d(dec["conv_out"], group_norm(dec["conv_norm_out"], x, g, eps=1e-6, silu=True),
+                  padding=1)
 
 
 def vae_decode_batched(params: dict, latents: torch.Tensor, cfg: VAEConfig = SD15_VAE_CONFIG,

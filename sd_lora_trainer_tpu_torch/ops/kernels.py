@@ -1,13 +1,15 @@
 """Build and load the hand-written CUDA kernels (csrc/*.cu).
 
 Each kernel source builds with nvcc for sm_90a into its own shared library
-with a plain C interface, loaded with ctypes. A source compiles as one
+with a plain C interface, loaded with ctypes. A flash source compiles as one
 translation unit per padded head dim (`-DFLASH_DP=<DP>`, DP in HEAD_DIM_TILES)
-plus one for its exported dispatch function (csrc/flash_common.cuh); every
-unit of every kernel compiles at once, one nvcc each, and each kernel's
-objects are then linked into its library. The build happens at first use (or
-through `build_kernels()`), never at import, so the CPU tests import this
-module without a CUDA toolkit. Libraries land in `build/kernels/` at the
+plus one for its exported dispatch function (csrc/flash_common.cuh); the
+norm source (csrc/norm.cu) as two, its LayerNorm and its GroupNorm kernels
+(`-DNORM_UNIT=0|1`). Every unit of every kernel compiles at once, one nvcc
+each, and each kernel's objects are then linked into its library. The build
+happens at first use (or through `build_kernels()`), never at import, so the
+CPU tests import this module without a CUDA toolkit. Libraries land in
+`build/kernels/` at the
 repository root (git-ignored), named by a hash of their sources and headers,
 so an edited kernel or header is rebuilt. Beside each library lies its
 ptxas report (`lib<name>-<hash>.ptxas.txt`, every unit's in turn), read back
@@ -28,7 +30,7 @@ from typing import Dict
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-KERNEL_SOURCES = ("flash_fwd", "flash_bwd")
+KERNEL_SOURCES = ("flash_fwd", "flash_bwd", "norm")
 # padded head dims round_up(d, 16) the kernels are instantiated for
 # (FLASH_HEAD_DIMS in csrc/flash_common.cuh)
 HEAD_DIM_TILES = tuple(range(16, 257, 16))
@@ -40,6 +42,39 @@ _LIBS: Dict[str, ctypes.CDLL] = {}
 # ptxas resource report (registers, spills, shared memory) of each library,
 # from this build or the report kept beside a cached library
 BUILD_LOG: Dict[str, str] = {}
+
+
+class NormArgs(ctypes.Structure):
+    """Mirror of `NormArgs` in csrc/norm.cu (field order matters)."""
+
+    _fields_ = [
+        ("x", ctypes.c_void_p),
+        ("dy", ctypes.c_void_p),
+        ("weight", ctypes.c_void_p),
+        ("bias", ctypes.c_void_p),
+        ("out", ctypes.c_void_p),
+        ("mean", ctypes.c_void_p),
+        ("rstd", ctypes.c_void_p),
+        ("work", ctypes.c_void_p),
+        ("dweight", ctypes.c_void_p),
+        ("dbias", ctypes.c_void_p),
+        ("counter", ctypes.c_void_p),
+        ("rows", ctypes.c_longlong),
+        ("batch", ctypes.c_int),
+        ("channels", ctypes.c_int),
+        ("groups", ctypes.c_int),
+        ("vec", ctypes.c_int),
+        ("nv", ctypes.c_int),
+        ("blocks", ctypes.c_int),
+        ("cols", ctypes.c_int),
+        ("rpi", ctypes.c_int),
+        ("tile", ctypes.c_int),
+        ("tiles", ctypes.c_int),
+        ("eps", ctypes.c_float),
+        ("dtype", ctypes.c_int),
+        ("wdtype", ctypes.c_int),
+        ("silu", ctypes.c_int),
+    ]
 
 
 class FlashStrides(ctypes.Structure):
@@ -105,7 +140,19 @@ def _report_path(lib: Path) -> Path:
 
 def _units(name: str):
     """(label, nvcc defines) of each translation unit of one kernel source."""
+    if name == "norm":
+        return [("layer", ["-DNORM_UNIT=0"]), ("group", ["-DNORM_UNIT=1"])]
     return [(f"dp{dp}", [f"-DFLASH_DP={dp}"]) for dp in HEAD_DIM_TILES] + [("dispatch", [])]
+
+
+# each library's exported C functions, and the struct each one takes by pointer
+# (beside the stream)
+EXPORTS = {
+    "flash_fwd": (("flash_fwd",), FlashArgs),
+    "flash_bwd": (("flash_bwd",), FlashArgs),
+    "norm": (("norm_layer_forward", "norm_layer_backward", "norm_group_forward",
+              "norm_group_backward"), NormArgs),
+}
 
 
 def build_kernels() -> float:
@@ -167,9 +214,11 @@ def kernel_lib(name: str) -> ctypes.CDLL:
         if not path.exists():
             build_kernels()
         lib = ctypes.CDLL(str(path))
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.POINTER(FlashArgs), ctypes.c_void_p]
-        fn.restype = ctypes.c_int
+        functions, args = EXPORTS[name]
+        for fn_name in functions:
+            fn = getattr(lib, fn_name)
+            fn.argtypes = [ctypes.POINTER(args), ctypes.c_void_p]
+            fn.restype = ctypes.c_int
         _LIBS[name] = lib
     return lib
 

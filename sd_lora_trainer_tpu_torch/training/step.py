@@ -54,6 +54,7 @@ from sd_lora_trainer_tpu_torch.models.conditioning import sd15_conditioning, sdx
 from sd_lora_trainer_tpu_torch.models.lora import inject_lora, iter_lora_leaves
 from sd_lora_trainer_tpu_torch.models.unet import UNetConfig, unet_forward
 from sd_lora_trainer_tpu_torch.ops import flash_attention as fa
+from sd_lora_trainer_tpu_torch.ops import norms
 from sd_lora_trainer_tpu_torch.parallel.distributed import local_rows
 from sd_lora_trainer_tpu_torch.training.optimizers import GroupOptimizer, group_tensors
 from sd_lora_trainer_tpu_torch.utils import profiling
@@ -561,6 +562,7 @@ class TrainStep:
         state.optimizer.zero_grad()  # the graph allocates the gradients
         reserved = self.backend.reserved_gib(device)
         fa.prepare_graph_counts(device)
+        norms.prepare_graph_counts(device)
         before = dict(fa.RECORDED)
         graph.marks = self._new_marks(device)
 

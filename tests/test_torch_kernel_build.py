@@ -11,7 +11,7 @@ from sd_lora_trainer_tpu_torch.ops import kernels
 
 
 def test_each_kernel_source_exists_and_the_split_backward_is_gone():
-    assert kernels.KERNEL_SOURCES == ("flash_fwd", "flash_bwd")
+    assert kernels.KERNEL_SOURCES == ("flash_fwd", "flash_bwd", "norm")
     for name in kernels.KERNEL_SOURCES:
         assert (kernels.CSRC / f"{name}.cu").is_file()
     assert not list(kernels.CSRC.glob("flash_bwd_d*.cu"))
@@ -58,8 +58,9 @@ echo "report of $(basename "$1")"
 
 def test_a_build_keeps_its_ptxas_report_and_a_cached_library_reads_it_back(tmp_path,
                                                                             monkeypatch):
-    """The ptxas report (registers, spills) of every translation unit, one
-    per padded head dim and the dispatch, is written beside each library, so
+    """The ptxas report (registers, spills) of every translation unit (a
+    flash source's one per padded head dim and the dispatch, the norm
+    source's LayerNorm and GroupNorm units) is written beside each library, so
     a run that finds the libraries already built still prints it."""
     fake = tmp_path / "nvcc"
     fake.write_text(_FAKE_NVCC)
@@ -73,6 +74,7 @@ def test_a_build_keeps_its_ptxas_report_and_a_cached_library_reads_it_back(tmp_p
             for name in kernels.KERNEL_SOURCES}
     for name in kernels.KERNEL_SOURCES:
         assert [label for label, _ in kernels._units(name)] == (
+            ["layer", "group"] if name == "norm" else
             [f"dp{dp}" for dp in range(16, 257, 16)] + ["dispatch"])
         lib = kernels._lib_path(name)
         assert lib.is_file()

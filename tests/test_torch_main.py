@@ -115,7 +115,9 @@ def test_cli_writes_the_jax_artifact_set(env, tmp_path, version):
     summary = json.loads(next(ln for ln in proc.stdout.splitlines()
                               if ln.startswith(tmain.SUMMARY_TAG))[len(tmain.SUMMARY_TAG):])
     assert len(summary["tot_loss"]) == 3 and all(np.isfinite(summary["tot_loss"]))
-    assert summary["launches"]["train"] == {"flash_fwd": 0, "flash_bwd": 0}  # no kernel on the CPU
+    # no kernel on the CPU
+    assert summary["launches"]["train"] == {"flash_fwd": 0, "flash_bwd": 0, "norm_fwd": 0,
+                                            "norm_bwd": 0}
     run_dir = out_dir / os.listdir(out_dir)[0]
     save_dir = run_dir / "checkpoints" / "checkpoint-3"
     files = sorted(os.listdir(save_dir))
@@ -238,8 +240,9 @@ def test_in_loop_checkpoints_keep_their_cost_apart(env, monkeypatch, capsys):
             "special_params.json", "training_args.json", "validation_grid.jpg",
             f"img_{step:04d}_0.jpg"])
     assert summary["steps"] == 4 and len(span) == 4
-    assert summary["launches"]["train"] == {"flash_fwd": 2 * 4, "flash_bwd": 4}
-    assert summary["launches"]["render"] == [{"flash_fwd": 3, "flash_bwd": 0}] * 2
+    norm = {"norm_fwd": 0, "norm_bwd": 0}  # no norm kernel on the CPU
+    assert summary["launches"]["train"] == {"flash_fwd": 2 * 4, "flash_bwd": 4, **norm}
+    assert summary["launches"]["render"] == [{"flash_fwd": 3, "flash_bwd": 0, **norm}] * 2
     assert summary["rendered_images"] == [1, 1] and len(summary["checkpoint_s"]) == 2
     assert all(r >= sleep_s for r in summary["render_s"])
     # the in-loop render sits between the first step's start and the last
